@@ -8,18 +8,26 @@ Phases (any failure raises and exits non-zero):
   1. build    g++ for the native front end, nvcc (sm_90a) for the kernels,
               all started together; prints the build seconds.
   2. kernels  at 1080p shapes (K=2 lanes, S=8 ring slots, random rings,
-              motion vectors overshooting every edge, unused cells) each
-              kernel against its plain PyTorch version on the card: exact
-              equality required; both timed with CUDA events.
+              motion vectors overshooting every edge, unused cells; random
+              intra planes with every mb kind, availability bit and mode)
+              each kernel against its plain PyTorch version on the card:
+              exact equality required; both timed with CUDA events.  Also
+              the intra kernel against the level rounds (intra_rounds) on
+              one intra-sparse input, both timed.
   3. decode   the main path: a 1080p (120x68 mb) CABAC IPB stream of 2
               closed GOPs (IDR+P+B) through decode_gops_batched(lanes=2)
               on cuda with sink="frames" and sink="digest", and on the CPU
               (device="cpu", the plain versions) as the reference: every
               frame byte-identical, every digest == host_frame_digest;
-              every kernel launched during the cuda runs.
-  4. report   per-stage device ms/step and frames/s, then the `kernels`
-              JSON line, the card's name and power limit, and the final
-              JSON line.  Details also go to chiprun_out/chip_smoke.json.
+              every kernel and both intra routes (the kernel on IDR steps,
+              the level rounds on intra-sparse P/B steps) used.
+  4. single   the single-frame path: decode_annexb on cuda over the same
+              stream, every frame byte-identical to phase 3's CPU frames,
+              all four kernels launched.
+  5. report   per-stage device ms and frames/s of both paths, then the
+              `kernels` JSON line, the card's name and power limit, and
+              the final JSON line.  Details also go to
+              chiprun_out/chip_smoke.json.
 """
 
 import json
@@ -33,10 +41,13 @@ import numpy as np
 import torch
 
 from edge264_tpu_torch import native, streams
+from edge264_tpu_torch.api import decode_annexb
 from edge264_tpu_torch.convert import planes_to_torch
 from edge264_tpu_torch.kernels import build
+from edge264_tpu_torch.ops import backend as BK
 from edge264_tpu_torch.ops import batched as B
 from edge264_tpu_torch.ops import deblock as D
+from edge264_tpu_torch.ops import intra as I
 from edge264_tpu_torch.ops import mc as M
 from edge264_tpu_torch.parallel.batch import decode_gops_batched
 
@@ -160,6 +171,46 @@ def deblock_inputs(dev, seed=11):
             ri(0, 5, (K, 4 * MBH, 4 * MBW)), ri(0, 5, (K, 4 * MBH, 4 * MBW)))
 
 
+def intra_inputs(dev, seed, sparse=False):
+    """Random frames, residuals and planes for the intra kernel at 1080p:
+    every mb kind (I4x4, I16x16, PCM, inter, I8x8), random availability
+    bits, some directional modes outside the tables.  sparse=True keeps
+    ~5% of the mbs intra (the rest inter), as in the decode's P/B frames,
+    and returns each lane's intra_round_plane too."""
+    rng = np.random.RandomState(seed)
+    H, W = 16 * MBH, 16 * MBW
+    kinds = rng.randint(0, 5, (K, MBH, MBW))
+    fl = np.choose(kinds, [1 | 32, 1 | 2 | 32, 1 | 4 | 32, 64 | 32,
+                           1 | 8 | 32])
+    tabs = None
+    if sparse:
+        fl = np.where(rng.rand(K, MBH, MBW) < 0.05, fl, 64 | 32)
+        tabs = [I.intra_round_plane(f, MBW, MBH) for f in fl]
+        if any(t is None for t in tabs):
+            raise AssertionError("sparse intra input has no depth plane")
+    p = {"mb_flags": fl,
+         "i4_modes": rng.randint(0, 128, (K, 4 * MBH, 4 * MBW)),
+         "i8_modes": rng.randint(0, 10, (K, 2 * MBH, 2 * MBW))
+         | (rng.randint(0, 16, (K, 2 * MBH, 2 * MBW)) << 4),
+         "i16_modes": rng.randint(0, 4, (K, MBH, MBW))
+         | (rng.randint(0, 4, (K, MBH, MBW)) << 4),
+         "ch_modes": rng.randint(0, 4, (K, MBH, MBW))
+         | (rng.randint(0, 4, (K, MBH, MBW)) << 4),
+         "pcm_y": rng.randint(0, 256, (K, H, W)),
+         "pcm_c": rng.randint(0, 256, (K, 2, H // 2, W // 2))}
+    p = {k: torch.as_tensor(v, dtype=torch.int32, device=dev)
+         for k, v in p.items()}
+    frames = [torch.as_tensor(rng.randint(lo, hi, shape), dtype=torch.int32,
+                              device=dev)
+              for lo, hi, shape in ((0, 256, (K, H, W)),
+                                    (0, 256, (K, H // 2, W // 2)),
+                                    (0, 256, (K, H // 2, W // 2)),
+                                    (-40, 40, (K, H, W)),
+                                    (-40, 40, (K, H // 2, W // 2)),
+                                    (-40, 40, (K, H // 2, W // 2)))]
+    return p, frames, tabs
+
+
 def check_equal(name, got, want):
     err = 0
     for a, b in zip(got, want):
@@ -230,6 +281,47 @@ def phase_kernels(dev):
     out["deblock"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
                           bytes=nbytes, ops=ops)
     log(f"[kernels] deblock: exact; {ms:.3f} ms vs plain {plain_ms:.3f} ms")
+
+    p, frames, _ = intra_inputs(dev, 13)
+    want = I.intra_scan_sheared(*frames, p, MBW, MBH)
+    got = I.intra_batch(*[f.clone() for f in frames], p, MBW, MBH)
+    err = check_equal("intra", got, want)
+    copies = [[f.clone() for f in frames[:3]] + frames[3:]
+              for _ in range(6)]
+    it = iter(copies)
+    ms = cuda_ms(lambda: I.intra_batch(*next(it), p, MBW, MBH), 5)
+    plain_ms = cuda_ms(lambda: I.intra_scan_sheared(*frames, p, MBW, MBH), 1)
+    # least bytes: the frames, residuals and PCM samples read once, the
+    # frames written once, the mode and flag planes read once (int32)
+    nbytes = 4 * (2 * sum(f.numel() for f in frames)
+                  + sum(t.numel() for t in p.values()))
+    # operations: ~12 integer ops per reconstructed sample (3-tap sum or
+    # DC/plane term, residual add, clip, address), 384 samples per mb of
+    # this data's intra and PCM mbs
+    n_intra = int(((p["mb_flags"] & 1) > 0).sum())
+    ops = 12 * 384 * n_intra
+    out["intra"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                        bytes=nbytes, ops=ops, waves=MBW + 2 * MBH - 2)
+    log(f"[kernels] intra: exact; {ms:.3f} ms vs plain {plain_ms:.3f} ms")
+
+    # intra-sparse input: the level rounds (the lockstep route on P/B
+    # steps) against the kernel on the same frames
+    p, frames, tabs = intra_inputs(dev, 17, sparse=True)
+    R = max(t[1] for t in tabs)
+    want = I.intra_rounds(*frames, p, None, MBW, MBH, R)
+    got = I.intra_batch(*[f.clone() for f in frames], p, MBW, MBH)
+    check_equal("intra sparse: kernel vs rounds", got, want)
+    copies = [[f.clone() for f in frames[:3]] + frames[3:]
+              for _ in range(11)]
+    it = iter(copies)
+    k_ms = cuda_ms(lambda: I.intra_batch(*next(it), p, MBW, MBH), 10)
+    r_ms = cuda_ms(lambda: I.intra_rounds(*frames, p, None, MBW, MBH, R), 3)
+    out["intra_sparse"] = dict(kernel_ms=k_ms, rounds_ms=r_ms, rounds=R,
+                               intra_mbs=int(((p["mb_flags"] & 1) > 0)
+                                             .sum()))
+    log(f"[kernels] intra-sparse input ({out['intra_sparse']['intra_mbs']} "
+        f"intra mbs, rounds{R}): kernel {k_ms:.3f} ms, level rounds "
+        f"{r_ms:.3f} ms, equal")
     return out
 
 
@@ -237,21 +329,27 @@ def phase_kernels(dev):
 # phase 3: the main path
 
 STAGES = ("residual_frame", "pack_mc_params", "run_mc_kernels", "combine_mc",
-          "intra_scan_sheared", "deblock_bs", "deblock_batch", "_emit_aux",
-          "make_ref_planes")
+          "intra_batch", "intra_rounds", "deblock_bs", "deblock_batch",
+          "_emit_aux", "make_ref_planes")
+# the single-frame backend's stages (ops.backend's names)
+STAGES_1 = ("residual_frame", "pack_mc_params", "run_mc_kernels",
+            "combine_mc", "intra_batch", "deblock_bs", "deblock_batch",
+            "blend_recovered", "make_ref_planes")
 
 
 class StageTimer:
-    """Wraps the step's stage functions (ops.batched's names) with CUDA
-    events on the current stream; device ms per stage, no host sync."""
+    """Wraps a module's stage functions (ops.batched's or ops.backend's
+    names) with CUDA events on the current stream; device ms per stage,
+    no host sync."""
 
-    def __init__(self):
-        self.events = {n: [] for n in STAGES}
+    def __init__(self, module=B, names=STAGES):
+        self.module = module
+        self.events = {n: [] for n in names}
 
     def __enter__(self):
-        self.saved = {n: getattr(B, n) for n in STAGES}
+        self.saved = {n: getattr(self.module, n) for n in self.events}
         for n, fn in self.saved.items():
-            setattr(B, n, self._wrap(n, fn))
+            setattr(self.module, n, self._wrap(n, fn))
         return self
 
     def _wrap(self, name, fn):
@@ -267,7 +365,7 @@ class StageTimer:
 
     def __exit__(self, *exc):
         for n, fn in self.saved.items():
-            setattr(B, n, fn)
+            setattr(self.module, n, fn)
 
     def ms(self):
         torch.cuda.synchronize()
@@ -275,16 +373,21 @@ class StageTimer:
                 for n, ev in self.events.items()}
 
 
+COUNTED = {"intra": I.intra_batch, "intra_rounds": I.intra_rounds,
+           "deblock": D.deblock_batch, "mc_luma": M.mc_luma,
+           "mc_chroma": M.mc_chroma}
+KERNELS = ("intra", "deblock", "mc_luma", "mc_chroma")
+
+
 def reset_counts():
-    D.deblock_batch.launches = 0
-    M.mc_luma.launches = 0
-    M.mc_chroma.launches = 0
+    for fn in COUNTED.values():
+        fn.launches = 0
 
 
 def read_counts():
-    return {"deblock": D.deblock_batch.launches,
-            "mc_luma": M.mc_luma.launches,
-            "mc_chroma": M.mc_chroma.launches}
+    """Launches per kernel wrapper, and calls of the level rounds (a
+    route, not a kernel)."""
+    return {n: fn.launches for n, fn in COUNTED.items()}
 
 
 def phase_decode():
@@ -306,7 +409,8 @@ def phase_decode():
     res["frames_s"] = time.perf_counter() - t0
     res["launches"] = read_counts()
     if not all(res["launches"].values()):
-        raise AssertionError(f"a kernel never ran: {res['launches']}")
+        raise AssertionError(f"a kernel or route never ran: "
+                             f"{res['launches']}")
 
     reset_counts()
     t0 = time.perf_counter()
@@ -314,7 +418,8 @@ def phase_decode():
     res["digest_s"] = time.perf_counter() - t0
     res["launches_digest"] = read_counts()
     if not all(res["launches_digest"].values()):
-        raise AssertionError(f"a kernel never ran: {res['launches_digest']}")
+        raise AssertionError(f"a kernel or route never ran: "
+                             f"{res['launches_digest']}")
 
     with StageTimer() as st:
         t0 = time.perf_counter()
@@ -339,6 +444,35 @@ def phase_decode():
     res["frames"] = n
     log(f"[decode] {n} frames byte-identical cuda vs cpu; digests match; "
         f"launches {res['launches']}")
+    return res, data, ref
+
+
+# ---------------------------------------------------------------------------
+# phase 4: the single-frame path
+
+def phase_single(data, ref):
+    res = {}
+    list(decode_annexb(data))          # warm-up, not counted
+    reset_counts()
+    t0 = time.perf_counter()
+    frames = list(decode_annexb(data))
+    res["frames_s"] = time.perf_counter() - t0
+    res["launches"] = read_counts()
+    if not all(res["launches"][n] for n in KERNELS):
+        raise AssertionError(f"a kernel never ran: {res['launches']}")
+    if len(frames) != len(ref):
+        raise AssertionError(f"{len(frames)} frames, want {len(ref)}")
+    for i, (a, b) in enumerate(zip(ref, frames)):
+        for c in ("y", "cb", "cr"):
+            if not np.array_equal(getattr(a, c), getattr(b, c)):
+                raise AssertionError(f"frame {i} {c}: decode_annexb on "
+                                     f"cuda != lockstep cpu")
+    with StageTimer(BK, STAGES_1) as st:
+        list(decode_annexb(data))
+    res["stage_ms"] = st.ms()
+    res["frames"] = len(frames)
+    log(f"[single] {len(frames)} frames of decode_annexb on cuda "
+        f"byte-identical to the cpu reference; launches {res['launches']}")
     return res
 
 
@@ -351,18 +485,27 @@ def main():
     log(f"[card] {gpu}; torch {torch.__version__} cuda {torch.version.cuda}")
     report = {"card": gpu, "build": phase_build()}
     report["kernels"] = phase_kernels(dev)
-    report["decode"] = dec = phase_decode()
+    dec, data, ref = phase_decode()
+    report["decode"] = dec
+    report["single"] = one = phase_single(data, ref)
 
     steps = dec["steps"]
     for n, v in dec["stage_ms"].items():
-        log(f"[stage] {n}: {v / steps:.2f} ms/step ({gpu})")
-    log(f"[decode] frames/s: {dec['frames'] / dec['frames_s']:.2f} "
+        log(f"[stage] lockstep {n}: {v / steps:.2f} ms/step ({gpu})")
+    for n, v in one["stage_ms"].items():
+        log(f"[stage] single-frame {n}: {v / one['frames']:.2f} ms/frame "
+            f"({gpu})")
+    log(f"[decode] lockstep frames/s: {dec['frames'] / dec['frames_s']:.2f} "
         f"(sink=frames), {dec['frames'] / dec['digest_s']:.2f} "
         f"(sink=digest), cpu reference {dec['frames'] / dec['cpu_s']:.3f} "
         f"({gpu})")
+    log(f"[single] decode_annexb frames/s: "
+        f"{one['frames'] / one['frames_s']:.2f} ({gpu})")
 
     rows = []
     for name, src, repl in (
+            ("intra", "edge264_tpu_torch/kernels/csrc/intra.cu",
+             "edge264_tpu/ops/pallas_intra.py:118"),
             ("deblock", "edge264_tpu_torch/kernels/csrc/deblock.cu",
              "edge264_tpu/ops/pallas_deblock.py:265"),
             ("mc_luma", "edge264_tpu_torch/kernels/csrc/mc.cu",
@@ -374,6 +517,7 @@ def main():
         t_ops = k["ops"] / SCALAR_OPS_PER_S * 1e3
         rows.append({"name": name, "route": "cuda", "source": src,
                      "replaces": repl, "launches": dec["launches"][name],
+                     "launches_decode_annexb": one["launches"][name],
                      "max_abs_err": k["max_abs_err"], "ms": k["ms"],
                      "plain_ms": k["plain_ms"],
                      "bound_ms": max(t_bytes, t_ops),

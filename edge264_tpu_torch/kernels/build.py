@@ -29,6 +29,7 @@ _P, _I = C.c_void_p, C.c_int
 # library -> {entry: argtypes}; every entry returns int (cudaError_t)
 ENTRIES = {
     "deblock": {"e264t_deblock": [_P] * 9 + [_I, _I, _I, _P]},
+    "intra": {"e264t_intra": [_P] * 14 + [_I] * 5 + [_P]},
     "mc": {"e264t_mc_luma": [_P] * 5 + [_I] * 7 + [_P],
            "e264t_mc_chroma": [_P] * 5 + [_I] * 7 + [_P]},
 }

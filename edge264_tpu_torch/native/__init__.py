@@ -60,7 +60,10 @@ class Event(C.Structure):
 
 
 EV_FORMAT = 1
+EV_FRAME_START = 2
+EV_SLICE_DONE = 3
 EV_FRAME_DONE = 4
+EV_OUTPUT = 5
 EV_UNPIN = 6
 
 _PLANE_PTRS = ["mb_flags", "qp", "i4_modes", "i16_modes", "i8_modes",
@@ -84,6 +87,7 @@ def load():
         lib = C.CDLL(build())
         lib.e264t_alloc.restype = C.c_void_p
         lib.e264t_free.argtypes = [C.c_void_p]
+        lib.e264t_flush.argtypes = [C.c_void_p]
         lib.e264t_decode_nal.argtypes = [C.c_void_p, C.c_char_p, C.c_size_t]
         lib.e264t_decode_nal.restype = C.c_int
         lib.e264t_poll.argtypes = [C.c_void_p, C.POINTER(Event)]
@@ -96,6 +100,14 @@ def load():
                                         C.POINTER(C.c_int32)]
         lib.e264t_get_frame.restype = C.c_int
         lib.e264t_return_frame.argtypes = [C.c_void_p, C.c_int]
+        lib.e264t_get_log.argtypes = [C.c_void_p, C.c_char_p, C.c_size_t]
+        lib.e264t_get_log.restype = C.c_size_t
+        lib.e264t_set_logging.argtypes = [C.c_void_p, C.c_int, C.c_int]
+        lib.e264t_slot_info.argtypes = [C.c_void_p, C.c_int,
+                                        C.POINTER(C.c_int32)]
+        lib.e264t_set_threads.argtypes = [C.c_void_p, C.c_int]
+        lib.e264t_wait_frame.argtypes = [C.c_void_p]
+        lib.e264t_wait_frame.restype = C.c_int
         _lib = lib
     return _lib
 
@@ -160,11 +172,21 @@ class SyntaxPlanes:
 
 
 class NativeDecoder:
-    """Thin pythonic wrapper over the C ABI."""
+    """Thin pythonic wrapper over the C ABI.
 
-    def __init__(self):
+    log / log_mbs: YAML syntax logging (per macroblock with log_mbs), read
+    back with get_log; n_tasks > 0 parses frames on that many worker
+    threads (the native layer stays synchronous while logging)."""
+
+    def __init__(self, log: bool = False, log_mbs: bool = False,
+                 n_tasks: int = 0):
         self._lib = load()
         self._h = self._lib.e264t_alloc()
+        if log or log_mbs:
+            self._lib.e264t_set_logging(self._h, 1, 1 if log_mbs else 0)
+        if n_tasks:
+            self._lib.e264t_set_threads(self._h, n_tasks)
+        self._logbuf = None
 
     def close(self):
         if self._h:
@@ -176,11 +198,28 @@ class NativeDecoder:
 
     def decode_nal(self, data: bytes) -> tuple[int, list]:
         ret = self._lib.e264t_decode_nal(self._h, data, len(data))
+        return ret, self.poll()
+
+    def poll(self) -> list:
+        """Drain pending events (frames retired by worker tasks since the
+        last decode_nal surface here)."""
         evs = []
         ev = Event()
         while self._lib.e264t_poll(self._h, C.byref(ev)):
             evs.append((ev.kind, ev.slot, ev.a, ev.b, ev.c, ev.d))
-        return ret, evs
+        return evs
+
+    def wait_frame(self) -> int:
+        """Block until the oldest queued output frame completes; 0 when a
+        frame should be gettable, -1 if no tasks are in flight."""
+        return self._lib.e264t_wait_frame(self._h)
+
+    def get_log(self) -> str:
+        if self._logbuf is None:
+            self._logbuf = C.create_string_buffer(1 << 22)
+        n = self._lib.e264t_get_log(self._h, self._logbuf,
+                                    len(self._logbuf))
+        return self._logbuf[:n].decode("utf-8", "replace")
 
     def planes(self, slot: int) -> SyntaxPlanes:
         return SyntaxPlanes(self._h, slot)
@@ -202,3 +241,12 @@ class NativeDecoder:
 
     def return_frame(self, slot: int):
         self._lib.e264t_return_frame(self._h, slot)
+
+    def slot_info(self, slot: int):
+        out = (C.c_int32 * 4)()
+        self._lib.e264t_slot_info(self._h, slot, out)
+        return dict(poc=out[0], frame_num=out[1], complete=out[2],
+                    is_ref=out[3])
+
+    def flush(self):
+        self._lib.e264t_flush(self._h)

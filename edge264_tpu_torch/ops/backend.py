@@ -1,0 +1,130 @@
+"""The single-frame pixel backend: one frame per call through every stage.
+
+Port of `jaxdec.JaxBackend` for `core.DecoderCore`.  The DPB's reference
+phase planes (mc.make_ref_planes) live in a persistent device ring
+[1, S, ...] keyed by DPB slot, written in place and grown by doubling;
+only reference frames enter it.  `reconstruct` runs residual -> MC (when
+the ring holds a reference) -> intra -> deblock -> concealment blend, with
+the same kernels as the lockstep step (K = 1), and returns device tensors
+so the host parses the next slice while the device works.  On the card
+every frame goes through the intra and deblock kernels, and every frame
+with a reference through the two MC kernels.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ..convert import planes_to_torch
+from .deblock import blend_recovered, deblock_batch, deblock_bs
+from .intra import intra_batch
+from .mc import combine_mc, make_ref_planes, mc_band_dims, pack_mc_params, \
+    run_mc_kernels
+from .residual import residual_frame
+from .tables import MBF_BLEND, MBF_IPCM, MBF_T8x8
+
+I32 = torch.int32
+U8 = torch.uint8
+
+
+class TorchBackend:
+    """Device pixel backend.  device: None -> "cuda" (raises without a
+    card); "cpu" runs the plain versions."""
+
+    RING_START = 8            # ring slots; grows by doubling
+
+    def __init__(self, device=None):
+        self.device = torch.device("cuda" if device is None else device)
+        if self.device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError("no CUDA device: pass device='cpu' to decode "
+                               "on the CPU")
+        self.ringL = None         # [1, S, 4, ph, pw_b] uint8 (G,B,H,J)
+        self.ringC = None         # [1, S, phc, 2*pwc_pad] uint8
+        self.ring_map = {}        # DPB slot -> ring index
+        self.ring_free = []
+        self._keep = set()        # sticky conditional planes
+        self._geom = None
+
+    def _ring_reserve(self, slot, mbW, mbH):
+        if self._geom != (mbW, mbH):
+            self._geom = (mbW, mbH)
+            self.ring_map.clear()
+            ph, pw_b, phc, pwc_pad = mc_band_dims(mbW, mbH)
+            S = self.RING_START
+            self.ringL = torch.zeros((1, S, 4, ph, pw_b), dtype=U8,
+                                     device=self.device)
+            self.ringC = torch.zeros((1, S, phc, 2 * pwc_pad), dtype=U8,
+                                     device=self.device)
+            self.ring_free = list(range(S))
+        if not self.ring_free:
+            S = self.ringL.shape[1]
+            self.ringL = torch.cat([self.ringL, torch.zeros_like(self.ringL)],
+                                   1)
+            self.ringC = torch.cat([self.ringC, torch.zeros_like(self.ringC)],
+                                   1)
+            self.ring_free = list(range(S, 2 * S))
+        i = self.ring_free.pop()
+        self.ring_map[slot] = i
+        return i
+
+    def reconstruct(self, planes, slot, store, is_ref=True):
+        """One frame's pixels from its syntax planes: (y, cb, cr) uint8
+        device tensors, mb-aligned.  `store` is unused: references come
+        from the ring."""
+        mbW, mbH = planes.mb_w, planes.mb_h
+        flags = np.asarray(planes.mb_flags)
+        if (flags & MBF_T8x8).any():
+            self._keep |= {"coef_y8", "i8_modes"}
+        if (flags & MBF_IPCM).any():
+            self._keep |= {"pcm_y", "pcm_c"}
+        if np.asarray(planes.wp).any() or np.asarray(planes.wp8).any():
+            self._keep |= {"wp", "wp8"}
+        # the concealment planes go up only for a frame that blends
+        blend = bool((flags & MBF_BLEND).any())
+        keep = self._keep | ({"mb_errors", "slice_id"} if blend else set())
+        ws8 = np.full((6, 64), 16, np.int32)
+        ws8[0] = planes.sm8[0]
+        ws8[1] = planes.sm8[1]
+        smap = np.zeros(32, np.int32)
+        for s, i in self.ring_map.items():
+            smap[s] = i
+        p = planes_to_torch([planes], keep, self.device, extra={
+            "sm4": np.asarray(planes.sm4, np.int32)[None], "sm8": ws8[None],
+            "slot_map": smap[None]})
+        sm4, sm8, slot_maps = p.pop("sm4"), p.pop("sm8"), p.pop("slot_map")
+        has_t8 = "coef_y8" in keep
+        res_y, res_cb, res_cr = residual_frame(p, sm4, sm8, has_t8)
+        if self.ring_map:
+            flg, pkl, pkc = pack_mc_params(p, slot_maps, True, mbW, mbH)
+            flat = run_mc_kernels(flg, pkl, pkc, self.ringL, self.ringC,
+                                  True, mbW, mbH)
+            pred_y, pred_cb, pred_cr, mask_y, mask_c = combine_mc(
+                p, slot_maps, flat, True)
+            y = torch.where(mask_y, (pred_y + res_y).clamp(0, 255), 0)
+            cb = torch.where(mask_c, (pred_cb + res_cb).clamp(0, 255), 0)
+            cr = torch.where(mask_c, (pred_cr + res_cr).clamp(0, 255), 0)
+        else:
+            y = torch.zeros((1, 16 * mbH, 16 * mbW), dtype=I32,
+                            device=self.device)
+            cb = torch.zeros((1, 8 * mbH, 8 * mbW), dtype=I32,
+                             device=self.device)
+            cr = torch.zeros_like(cb)
+        y, cb, cr = intra_batch(y, cb, cr, res_y, res_cb, res_cr, p, mbW,
+                                mbH, has_t8, "pcm_y" in keep)
+        bs_v, bs_h = deblock_bs(p)
+        y, cb, cr = deblock_batch(y, cb, cr, p, bs_v, bs_h, mbW, mbH)
+        if blend:
+            y, cb, cr = blend_recovered(y, cb, cr, p)
+        y8, cb8, cr8 = y.to(U8), cb.to(U8), cr.to(U8)
+        if is_ref:
+            i = self._ring_reserve(slot, mbW, mbH)
+            newL, newC = make_ref_planes(y8, cb8, cr8)
+            self.ringL[0, i] = newL[0]
+            self.ringC[0, i] = newC[0]
+        return y8[0], cb8[0], cr8[0]
+
+    def unpin(self, slot):
+        i = self.ring_map.pop(slot, None)
+        if i is not None:
+            self.ring_free.append(i)

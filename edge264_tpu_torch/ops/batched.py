@@ -16,7 +16,7 @@ import numpy as np
 import torch
 
 from .deblock import deblock_batch, deblock_bs
-from .intra import intra_scan_sheared
+from .intra import intra_batch, intra_rounds
 from .mc import combine_mc, make_ref_planes, mc_band_dims, pack_mc_params, \
     run_mc_kernels
 from .residual import residual_frame
@@ -103,6 +103,23 @@ def _emit_aux(y8, cb8, cr8, emit, crop):
 # ---------------------------------------------------------------------------
 # the step
 
+def _intra_dispatch(y, cb, cr, res_y, res_cb, res_cr, p, intra_mode, mbW,
+                    mbH, has_t8, has_pcm):
+    """The step's intra route: "skip" is the identity, "rounds{R}" the
+    level rounds with the depth plane recomputed from mb_flags on the
+    device, "sheared" the wavefront (the CUDA kernel on the card)."""
+    if intra_mode == "skip":
+        return y, cb, cr
+    if intra_mode.startswith("rounds"):
+        return intra_rounds(y, cb, cr, res_y, res_cb, res_cr, p, None, mbW,
+                            mbH, int(intra_mode[len("rounds"):]), has_t8,
+                            has_pcm)
+    if intra_mode == "sheared":
+        return intra_batch(y, cb, cr, res_y, res_cb, res_cr, p, mbW, mbH,
+                           has_t8, has_pcm)
+    raise ValueError(f"intra_mode={intra_mode!r}")
+
+
 def decode_batch_step(p, meta, refs, *, mbW, mbH, has_t8, has_pcm,
                       intra_mode, mc, emit="flat", crop=(0, 0, 0, 0)):
     """One lockstep step over K frames.
@@ -115,7 +132,9 @@ def decode_batch_step(p, meta, refs, *, mbW, mbH, has_t8, has_pcm,
     refs       (refL [K,S1,4,ph,pw_b] u8, refC [K,S1,phc,2*pwc_pad] u8),
                updated IN PLACE and returned
     has_t8 / has_pcm  False skips the 8x8-transform / PCM work
-    intra_mode "sheared" (any intra or PCM mb in the batch) | "skip"
+    intra_mode "skip" (no intra or PCM mb in any lane) | "rounds{R}"
+               (every lane intra-sparse, depths <= R) | "sheared" (the
+               wavefront: intra_batch); see _intra_dispatch
     mc         False for steps without inter prediction (step 0)
     emit       "flat" ([K, Y+C+C] u8) | "digest" ([K, 2] int64 uint32
                words)
@@ -141,11 +160,8 @@ def decode_batch_step(p, meta, refs, *, mbW, mbH, has_t8, has_pcm,
         y = torch.zeros((K, 16 * mbH, 16 * mbW), dtype=I32, device=dev)
         cb = torch.zeros((K, 8 * mbH, 8 * mbW), dtype=I32, device=dev)
         cr = torch.zeros_like(cb)
-    if intra_mode == "sheared":
-        y, cb, cr = intra_scan_sheared(y, cb, cr, res_y, res_cb, res_cr, p,
-                                       mbW, mbH, has_t8, has_pcm)
-    elif intra_mode != "skip":
-        raise ValueError(f"intra_mode={intra_mode!r}")
+    y, cb, cr = _intra_dispatch(y, cb, cr, res_y, res_cb, res_cr, p,
+                                intra_mode, mbW, mbH, has_t8, has_pcm)
     bs_v, bs_h = deblock_bs(p)
     y, cb, cr = deblock_batch(y, cb, cr, p, bs_v, bs_h, mbW, mbH)
     y8, cb8, cr8 = y.to(U8), cb.to(U8), cr.to(U8)

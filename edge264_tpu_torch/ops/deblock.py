@@ -1,11 +1,13 @@
 """In-loop deblocking (§8.7), batched over K frames: boundary strengths, the
-plain wavefront scan, and the wrapper that launches the CUDA kernel.
+plain wavefront scan, the wrapper that launches the CUDA kernel, and the
+post-deblock concealment blend.
 
 Ports of `jaxdec.deblock_bs`, `jaxdec.deblock_scan` (with
-`_filter_luma_lines` / `_filter_chroma_lines`) and of
-`pallas_deblock.deblock_pallas_batch`'s role: `deblock_batch` runs
+`_filter_luma_lines` / `_filter_chroma_lines`), of
+`pallas_deblock.deblock_pallas_batch`'s role (`deblock_batch` runs
 `kernels/csrc/deblock.cu` on CUDA tensors and the plain `deblock_scan`
-on CPU tensors.
+on CPU tensors) and of `jaxdec.blend_recovered` (plain PyTorch on every
+device, as it is XLA in the JAX package).
 """
 
 from __future__ import annotations
@@ -17,8 +19,8 @@ import torch
 from .intra import _shear_plane, _shear_tiles, _shift_my, _unshear_tiles, \
     _wave_index
 from .residual import _rep
-from .tables import ALPHA, BETA, DBF_INNER, DBF_LEFT, DBF_TOP, MBF_INTRA, \
-    MBF_T8x8, TC0
+from .tables import ALPHA, BETA, DBF_INNER, DBF_LEFT, DBF_TOP, MBF_BLEND, \
+    MBF_INTRA, MBF_T8x8, TC0
 
 I32 = torch.int32
 
@@ -301,3 +303,50 @@ def deblock_batch(y, cb, cr, p, bs_v, bs_h, mbW, mbH):
 
 
 deblock_batch.launches = 0
+
+
+def blend_recovered(y, cb, cr, p):
+    """Post-deblock blend of erroneous I mbs toward their neighbour-edge DC,
+    weighted by the graded error probability (recover_slice's I path,
+    edge264_headers.c:316-396), for K frames: y [K,16mbH,16mbW], cb/cr
+    [K,8mbH,8mbW] int32, p stacked.  As in the JAX package, neighbour
+    samples are read PRE-blend so all mbs blend in one pass (the reference
+    blends in raster order, reading already-blended neighbours)."""
+    bl = (p["mb_flags"] & MBF_BLEND) > 0          # [K, mbH, mbW]
+    sid = p["slice_id"]
+    w = (p["mb_errors"] * 128 // 100).clamp(0, 128)
+
+    def shl(a, fill):
+        return torch.cat([torch.full_like(a[..., :1], fill), a[..., :-1]], -1)
+
+    def shu(a, fill):
+        return torch.cat([torch.full_like(a[..., :1, :], fill),
+                          a[..., :-1, :]], -2)
+
+    # a neighbour supplies DC only if it was recovered by the same slice
+    # (reference: i==0 / i<pic_width exclusions, :326-329)
+    availA = bl & shl(bl, False) & (sid == shl(sid, -1))
+    availB = bl & shu(bl, False) & (sid == shu(sid, -1))
+
+    def one(img, ts):
+        K, H, W = img.shape
+        mh, mw = H // ts, W // ts
+        dev = img.device
+        cols = (torch.arange(mw, device=dev) * ts - 1).clamp(0, W - 1)
+        lsum = img[:, :, cols].reshape(K, mh, ts, mw).sum(2, dtype=I32)
+        rows = (torch.arange(mh, device=dev) * ts - 1).clamp(0, H - 1)
+        tsum = img[:, rows].reshape(K, mh, mw, ts).sum(3, dtype=I32)
+        none_sum = torch.full_like(lsum, ts * 128)
+        l = torch.where(availA, lsum, torch.where(availB, tsum, none_sum))
+        t = torch.where(availB, tsum, torch.where(availA, lsum, none_sum))
+        # rounded mean of the 2*ts edge samples
+        dc = (l + t + ts) >> ts.bit_length()
+
+        def rep(a):
+            return a.repeat_interleave(ts, 1).repeat_interleave(ts, 2)
+        wm, dcm = rep(w), rep(dc)
+        mixed = torch.where(wm >= 128, dcm,
+                            (img * (128 - wm) + dcm * wm) >> 7)
+        return torch.where(rep(bl), mixed, img)
+
+    return one(y, 16), one(cb, 8), one(cr, 8)

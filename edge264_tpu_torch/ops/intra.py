@@ -1,14 +1,26 @@
-"""Intra reconstruction as a wavefront over sheared macroblock tiles, batched
-over K frames.
+"""Intra reconstruction of K frames: the plain wavefront scan, the
+sparse-intra level rounds, and the wrapper that launches the CUDA kernel.
 
-Port of `jaxdec.intra_scan_sheared` with its weight matrices
+Ports of `jaxdec.intra_scan_sheared` with its weight matrices
 (`_mk_dir_w`, `_dir_matmul`) and the sheared-layout helpers
 (`_shear_tiles`, `_unshear_tiles`, `_shear_plane`, shared with the
-deblocking scan).  Macroblock (mx, my) sits on wave w = mx + 2*my; the
-macroblocks of one wave are independent, so each wave is one batched
-step over [K, mbH] tiles and the Python loop over waves takes the place
-of `lax.scan`.  The loop carries the tiles of waves w-1 (left and
-top-right neighbours), w-2 (top) and w-3 (top-left).
+deblocking scan), of `jaxdec.intra_round_plane` / `jaxdec.intra_rounds`,
+and of `pallas_intra.intra_pallas_batch`'s role: `intra_batch` runs
+`kernels/csrc/intra.cu` on CUDA tensors and the plain
+`intra_scan_sheared` on CPU tensors.
+
+Both plain versions reconstruct batches of macroblock tiles whose causal
+neighbours (left, top-left, top, top-right) are already final, through
+one shared routine (`_recon`):
+- `intra_scan_sheared`: macroblock (mx, my) sits on wave w = mx + 2*my;
+  the macroblocks of one wave are independent, so each wave is one batch
+  of [K, mbH] tiles and the Python loop over waves takes the place of
+  `lax.scan`.  The loop carries the tiles of waves w-1 (left and
+  top-right neighbours), w-2 (top) and w-3 (top-left).
+- `intra_rounds`: for intra-sparse frames, round r reconstructs every
+  intra macroblock of dependency depth r at once over the whole frame
+  (an intra macroblock waits only on intra neighbours; inter ones are
+  final before intra starts).
 
 Directional prediction for all modes is one matmul against the probed
 weight matrices.  It runs in float64: every product and sum is an
@@ -16,6 +28,8 @@ integer below 2^24, so the result is exact whatever the TF32 settings.
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import numpy as np
 import torch
@@ -148,6 +162,206 @@ def _dc3(aA, aB, sboth, sl, st, shift):
                                                torch.full_like(sl, 128))))
 
 
+def _weights(dev):
+    return {k: torch.as_tensor(v.T, dtype=torch.float64, device=dev)
+            for k, v in (("4", _W4), ("8", _W8), ("16", _W16),
+                         ("ch", _WCH), ("f8", _WF8))}
+
+
+def _recon(X, Xc, nbr, nbr_c, ry, rc, m, act, pcm, has_t8, has_pcm, Wt):
+    """Reconstruct the active macroblocks of a batch of tiles.
+
+    X [K, M, 16, 16] the luma tiles as they stand, Xc their (cb, cr) tiles
+    [K, M, 8, 8], ry / rc the residual tiles alike.  nbr = (T, L, TR, TL):
+    the final samples of each tile's top neighbour's bottom row, left
+    neighbour's right column, top-right neighbour's bottom row ([K, M, 16]
+    each) and top-left neighbour's corner ([K, M]), zeros outside the
+    frame; nbr_c = ((T, L, TL), (T, L, TL)) the same per chroma plane.  m:
+    the tiles' "i4" [K,M,4,4], "i8" [K,M,2,2] (when has_t8), "i16", "ch"
+    and "flags" [K,M] planes; act [K|1, M] the tiles to reconstruct; pcm
+    the (y, cb, cr) PCM tiles when has_pcm.  Returns (X, (Xcb, Xcr))."""
+    X = X.clone()
+    K, M = X.shape[:2]
+    dev = X.device
+    T, L, TR, TL = nbr
+    flags = m["flags"]
+    is_pcm = (flags & MBF_IPCM) > 0
+    is_i16 = (flags & MBF_I16x16) > 0
+    is_t8 = (flags & MBF_T8x8) > 0
+    is_intra = (flags & MBF_INTRA) > 0
+    is_i4 = is_intra & ~is_i16 & ~is_pcm & ~is_t8
+    is_i8 = is_intra & is_t8 & ~is_pcm
+
+    # ---- I4x4: 16 quad-order substeps ----------------------------------
+    act4 = (act & is_i4)[..., None, None]
+    for k in range(16):
+        bx, by = int(BLK4_X[k]), int(BLK4_Y[k])
+        r0, c0 = by * 4, bx * 4
+        mm = m["i4"][:, :, by, bx]
+        mode = mm & 15
+        aA, aB, aC = (mm >> 4) & 1, (mm >> 5) & 1, (mm >> 6) & 1
+        if by == 0:
+            t4 = T[..., c0:c0 + 4]
+            tr = TR[..., 0:4] if bx == 3 else T[..., c0 + 4:c0 + 8]
+        else:
+            t4 = X[..., r0 - 1, c0:c0 + 4]
+            tr = t4[..., 3:4].expand(t4.shape) if bx == 3 else \
+                X[..., r0 - 1, c0 + 4:c0 + 8]
+        t = torch.cat([t4, torch.where((aC > 0)[..., None], tr,
+                                       t4[..., 3:4])], -1)
+        l = L[..., r0:r0 + 4] if bx == 0 else X[..., r0:r0 + 4, c0 - 1]
+        if bx == 0 and by == 0:
+            tl = TL
+        elif by == 0:
+            tl = T[..., c0 - 1]
+        elif bx == 0:
+            tl = L[..., r0 - 1]
+        else:
+            tl = X[..., r0 - 1, c0 - 1]
+        nb = torch.cat([l.flip(-1), tl[..., None], t], -1)
+        dirp = _dir_matmul(nb, Wt["4"], mode, 9, 16)
+        sA, sB = l.sum(-1, dtype=I32), t[..., :4].sum(-1, dtype=I32)
+        dc = _dc3(aA, aB, sA + sB, sA, sB, 3)
+        pred = torch.where((mode == 2)[..., None], dc[..., None], dirp)
+        res = ry[..., r0:r0 + 4, c0:c0 + 4].reshape(K, M, 16)
+        recon = (pred + res).clamp(0, 255).reshape(K, M, 4, 4)
+        X[..., r0:r0 + 4, c0:c0 + 4] = torch.where(
+            act4, recon, X[..., r0:r0 + 4, c0:c0 + 4])
+
+    # ---- Intra_8x8: 4 quad-order substeps ------------------------------
+    act8 = (act & is_i8)[..., None, None]
+    for b in range(4) if has_t8 else ():
+        bx8, by8 = b & 1, b >> 1
+        r0, c0 = by8 * 8, bx8 * 8
+        mm = m["i8"][:, :, by8, bx8]
+        mode = mm & 15
+        aA, aB = (mm >> 4) & 1, (mm >> 5) & 1
+        aC, aD = (mm >> 6) & 1, (mm >> 7) & 1
+        if by8 == 0:
+            t8v = T[..., c0:c0 + 8]
+            tr = TR[..., 0:8] if bx8 == 1 else T[..., 8:16]
+        else:
+            t8v = X[..., 7, c0:c0 + 8]
+            tr = t8v[..., 7:8].expand(t8v.shape) if bx8 == 1 else \
+                X[..., 7, 8:16]
+        t = torch.cat([t8v, torch.where((aC > 0)[..., None], tr,
+                                        t8v[..., 7:8])], -1)
+        l = L[..., r0:r0 + 8] if bx8 == 0 else X[..., r0:r0 + 8, 7]
+        if bx8 == 0 and by8 == 0:
+            tl = TL
+        elif by8 == 0:
+            tl = T[..., 7]
+        elif bx8 == 0:
+            tl = L[..., 7]
+        else:
+            tl = X[..., 7, 7]
+        nb = torch.cat([l.flip(-1), tl[..., None], t], -1)
+        # §8.3.2.2.1 reference lowpass via matmul + boundary patches
+        nbf = _dense(nb, Wt["f8"]) >> 2
+        l0, t0, t1, l1 = nb[..., 7], nb[..., 9], nb[..., 10], nb[..., 6]
+        tl0 = nb[..., 8]
+        t0f = torch.where(aD > 0, (tl0 + 2 * t0 + t1 + 2) >> 2,
+                          (3 * t0 + t1 + 2) >> 2)
+        l0f = torch.where(aD > 0, (tl0 + 2 * l0 + l1 + 2) >> 2,
+                          (3 * l0 + l1 + 2) >> 2)
+        tlf = torch.where(
+            aD == 0, tl0,
+            _sel3((aA & aB) > 0, (t0 + 2 * tl0 + l0 + 2) >> 2,
+                  aB > 0, (3 * tl0 + t0 + 2) >> 2,
+                  torch.where(aA > 0, (3 * tl0 + l0 + 2) >> 2, tl0)))
+        nbf[..., 9] = t0f
+        nbf[..., 7] = l0f
+        nbf[..., 8] = tlf
+        nbf = torch.where((aB > 0)[..., None], nbf,
+                          torch.cat([nbf[..., :9], nb[..., 9:]], -1))
+        nbf = torch.where((aA > 0)[..., None], nbf,
+                          torch.cat([nb[..., :8], nbf[..., 8:]], -1))
+        dirp = _dir_matmul(nbf, Wt["8"], mode, 9, 64)
+        zero = torch.zeros_like(mode)
+        st = torch.where(aB > 0, nbf[..., 9:17].sum(-1, dtype=I32), zero)
+        sl = torch.where(aA > 0, nbf[..., :8].sum(-1, dtype=I32), zero)
+        dc = _dc3(aA, aB, st + sl, sl, st, 4)
+        pred = torch.where((mode == 2)[..., None], dc[..., None], dirp)
+        res = ry[..., r0:r0 + 8, c0:c0 + 8].reshape(K, M, 64)
+        recon = (pred + res).clamp(0, 255).reshape(K, M, 8, 8)
+        X[..., r0:r0 + 8, c0:c0 + 8] = torch.where(
+            act8, recon, X[..., r0:r0 + 8, c0:c0 + 8])
+
+    # ---- I16x16 --------------------------------------------------------
+    ar16 = torch.arange(16, dtype=I32, device=dev)
+    mm = m["i16"]
+    mode = mm & 3
+    aA, aB = (mm >> 4) & 1, (mm >> 5) & 1
+    t = torch.where((aB > 0)[..., None], T, 0)
+    l = torch.where((aA > 0)[..., None], L, 0)
+    nb = torch.cat([l.flip(-1), TL[..., None], t], -1)
+    dirp = _dir_matmul(nb, Wt["16"], mode.clamp(0, 1), 2, 256)
+    st, sl = t.sum(-1, dtype=I32), l.sum(-1, dtype=I32)
+    dc = _dc3(aA, aB, st + sl, sl, st, 5)
+    hs = _plane_sums(nb, _I16_HP, _I16_HM, 8)
+    vs = _plane_sums(nb, _I16_VP, _I16_VM, 8)
+    a = 16 * (nb[..., 0] + nb[..., 32])
+    b_ = (5 * hs + 32) >> 6
+    c_ = (5 * vs + 32) >> 6
+    plane = ((a[..., None] + b_[..., None] * (ar16.repeat(16) - 7)
+              + c_[..., None] * (ar16.repeat_interleave(16) - 7) + 16)
+             >> 5).clamp(0, 255)
+    pred = torch.where((mode == 2)[..., None], dc[..., None],
+                       torch.where((mode == 3)[..., None], plane, dirp))
+    recon = (pred + ry.reshape(K, M, 256)).clamp(0, 255) \
+        .reshape(K, M, 16, 16)
+    X = torch.where((act & is_i16)[..., None, None], recon, X)
+    if has_pcm:
+        X = torch.where((act & is_pcm)[..., None, None], pcm[0], X)
+
+    # ---- chroma --------------------------------------------------------
+    ar8 = torch.arange(8, dtype=I32, device=dev)
+    xx8, yy8 = ar8.repeat(8), ar8.repeat_interleave(8)
+    right, bottom = xx8 >= 4, yy8 >= 4
+    mm = m["ch"]
+    mode = mm & 3
+    aA, aB = (mm >> 4) & 1, (mm >> 5) & 1
+    both, onlyA, onlyB = (aA & aB) > 0, aA > 0, aB > 0
+    out_c = []
+    for ci, (img, (Tc, Lc, TLc), res_c) in enumerate(zip(Xc, nbr_c, rc)):
+        t = torch.where((aB > 0)[..., None], Tc, 0)
+        l = torch.where((aA > 0)[..., None], Lc, 0)
+        nb = torch.cat([l.flip(-1), TLc[..., None], t], -1)
+        dirp = _dir_matmul(nb, Wt["ch"], (mode - 1).clamp(0, 1), 2, 64)
+        ts0, ts1 = t[..., :4].sum(-1, dtype=I32), \
+            t[..., 4:].sum(-1, dtype=I32)
+        ls0, ls1 = l[..., :4].sum(-1, dtype=I32), \
+            l[..., 4:].sum(-1, dtype=I32)
+        g128 = torch.full_like(ts0, 128)
+        q00 = _sel3(both, (ts0 + ls0 + 4) >> 3, onlyA, (ls0 + 2) >> 2,
+                    torch.where(onlyB, (ts0 + 2) >> 2, g128))
+        q01 = _sel3(onlyB, (ts1 + 2) >> 2, onlyA, (ls0 + 2) >> 2, g128)
+        q10 = _sel3(onlyA, (ls1 + 2) >> 2, onlyB, (ts0 + 2) >> 2, g128)
+        q11 = _sel3(both, (ts1 + ls1 + 4) >> 3, onlyA, (ls1 + 2) >> 2,
+                    torch.where(onlyB, (ts1 + 2) >> 2, g128))
+        dcmap = torch.where(
+            bottom, torch.where(right, q11[..., None], q10[..., None]),
+            torch.where(right, q01[..., None], q00[..., None]))
+        hs = _plane_sums(nb, _CH_HP, _CH_HM, 4)
+        vs = _plane_sums(nb, _CH_VP, _CH_VM, 4)
+        a = 16 * (nb[..., 0] + nb[..., 16])
+        b_ = (34 * hs + 32) >> 6
+        c_ = (34 * vs + 32) >> 6
+        plane = ((a[..., None] + b_[..., None] * (xx8 - 3)
+                  + c_[..., None] * (yy8 - 3) + 16) >> 5).clamp(0, 255)
+        pred = torch.where((mode == 0)[..., None], dcmap,
+                           torch.where((mode == 3)[..., None], plane, dirp))
+        recon = (pred + res_c.reshape(K, M, 64)).clamp(0, 255) \
+            .reshape(K, M, 8, 8)
+        img = torch.where((act & is_intra & ~is_pcm)[..., None, None],
+                          recon, img)
+        if has_pcm:
+            img = torch.where((act & is_pcm)[..., None, None],
+                              pcm[1 + ci], img)
+        out_c.append(img)
+    return X, tuple(out_c)
+
+
 def intra_scan_sheared(y, cb, cr, res_y, res_cb, res_cr, p, mbW, mbH,
                        has_t8=True, has_pcm=True):
     """Intra reconstruction over K inter-predicted frames.
@@ -161,31 +375,21 @@ def intra_scan_sheared(y, cb, cr, res_y, res_cb, res_cr, p, mbW, mbH,
     NW = mbW + 2 * mbH - 2
     _, _, val_t = _wave_index(NW, mbW, mbH, dev)        # [NW, mbH]
 
-    Xy_t = _shear_tiles(y, mbW, mbH, 16, extra=0)
-    Xcb_t = _shear_tiles(cb, mbW, mbH, 8, extra=0)
-    Xcr_t = _shear_tiles(cr, mbW, mbH, 8, extra=0)
-    ry_t = _shear_tiles(res_y, mbW, mbH, 16, extra=0)
-    rcb_t = _shear_tiles(res_cb, mbW, mbH, 8, extra=0)
-    rcr_t = _shear_tiles(res_cr, mbW, mbH, 8, extra=0)
-    if has_pcm:
-        py_t = _shear_tiles(p["pcm_y"], mbW, mbH, 16, extra=0)
-        pcb_t = _shear_tiles(p["pcm_c"][:, 0], mbW, mbH, 8, extra=0)
-        pcr_t = _shear_tiles(p["pcm_c"][:, 1], mbW, mbH, 8, extra=0)
-    i4m_t = _shear_tiles(p["i4_modes"], mbW, mbH, 4, extra=0)
-    if has_t8:
-        i8m_t = _shear_tiles(p["i8_modes"], mbW, mbH, 2, extra=0)
-    i16m_t = _shear_plane(p["i16_modes"], mbW, mbH, extra=0)
-    chm_t = _shear_plane(p["ch_modes"], mbW, mbH, extra=0)
-    fl_t = _shear_plane(p["mb_flags"], mbW, mbH, extra=0)
+    def sh(img, ts):
+        return _shear_tiles(img, mbW, mbH, ts, extra=0)
 
-    Wt = {k: torch.as_tensor(v.T, dtype=torch.float64, device=dev)
-          for k, v in (("4", _W4), ("8", _W8), ("16", _W16),
-                       ("ch", _WCH), ("f8", _WF8))}
-    ar16 = torch.arange(16, dtype=I32, device=dev)
-    xx16, yy16 = ar16.repeat(16), ar16.repeat_interleave(16)
-    ar8 = torch.arange(8, dtype=I32, device=dev)
-    xx8, yy8 = ar8.repeat(8), ar8.repeat_interleave(8)
-    right, bottom = xx8 >= 4, yy8 >= 4
+    Xy_t, Xcb_t, Xcr_t = sh(y, 16), sh(cb, 8), sh(cr, 8)
+    ry_t, rcb_t, rcr_t = sh(res_y, 16), sh(res_cb, 8), sh(res_cr, 8)
+    if has_pcm:
+        pcm_t = (sh(p["pcm_y"], 16), sh(p["pcm_c"][:, 0], 8),
+                 sh(p["pcm_c"][:, 1], 8))
+    m_t = {"i4": sh(p["i4_modes"], 4)}
+    if has_t8:
+        m_t["i8"] = sh(p["i8_modes"], 2)
+    for k, pk in (("i16", "i16_modes"), ("ch", "ch_modes"),
+                  ("flags", "mb_flags")):
+        m_t[k] = _shear_plane(p[pk], mbW, mbH, extra=0)
+    Wt = _weights(dev)
 
     z_y = torch.zeros((K, mbH, 16, 16), dtype=I32, device=dev)
     z_c = torch.zeros((K, mbH, 8, 8), dtype=I32, device=dev)
@@ -193,192 +397,17 @@ def intra_scan_sheared(y, cb, cr, res_y, res_cb, res_cr, p, mbW, mbH,
     Ab = Bb = Cb_ = Ar = Br = Cr_ = z_c
     ey, ecb, ecr = [], [], []
     for w in range(NW):
-        X = Xy_t[w].clone()
-        Xcb, Xcr = Xcb_t[w], Xcr_t[w]
-        ry, rcb, rcr = ry_t[w], rcb_t[w], rcr_t[w]
-        i4m, i16m, chm, flags = i4m_t[w], i16m_t[w], chm_t[w], fl_t[w]
-        val = val_t[w][None, :]                          # [1, mbH]
         Bs, Cs, As = _shift_my(B), _shift_my(C), _shift_my(A)
-        is_pcm = (flags & MBF_IPCM) > 0
-        is_i16 = (flags & MBF_I16x16) > 0
-        is_t8 = (flags & MBF_T8x8) > 0
-        is_intra = (flags & MBF_INTRA) > 0
-        is_i4 = is_intra & ~is_i16 & ~is_pcm & ~is_t8
-        is_i8 = is_intra & is_t8 & ~is_pcm
-
-        # ---- I4x4: 16 quad-order substeps ------------------------------
-        act4 = (val & is_i4)[..., None, None]
-        for k in range(16):
-            bx, by = int(BLK4_X[k]), int(BLK4_Y[k])
-            r0, c0 = by * 4, bx * 4
-            m = i4m[:, :, by, bx]
-            mode = m & 15
-            aA, aB, aC = (m >> 4) & 1, (m >> 5) & 1, (m >> 6) & 1
-            if by == 0:
-                t4 = Bs[..., 15, c0:c0 + 4]
-                tr = As[..., 15, 0:4] if bx == 3 else \
-                    Bs[..., 15, c0 + 4:c0 + 8]
-            else:
-                t4 = X[..., r0 - 1, c0:c0 + 4]
-                tr = t4[..., 3:4].expand(t4.shape) if bx == 3 else \
-                    X[..., r0 - 1, c0 + 4:c0 + 8]
-            t = torch.cat([t4, torch.where((aC > 0)[..., None], tr,
-                                           t4[..., 3:4])], -1)
-            l = A[..., r0:r0 + 4, 15] if bx == 0 else \
-                X[..., r0:r0 + 4, c0 - 1]
-            if bx == 0 and by == 0:
-                tl = Cs[..., 15, 15]
-            elif by == 0:
-                tl = Bs[..., 15, c0 - 1]
-            elif bx == 0:
-                tl = A[..., r0 - 1, 15]
-            else:
-                tl = X[..., r0 - 1, c0 - 1]
-            nb = torch.cat([l.flip(-1), tl[..., None], t], -1)
-            dirp = _dir_matmul(nb, Wt["4"], mode, 9, 16)
-            sA, sB = l.sum(-1, dtype=I32), t[..., :4].sum(-1, dtype=I32)
-            dc = _dc3(aA, aB, sA + sB, sA, sB, 3)
-            pred = torch.where((mode == 2)[..., None], dc[..., None], dirp)
-            res = ry[..., r0:r0 + 4, c0:c0 + 4].reshape(K, mbH, 16)
-            recon = (pred + res).clamp(0, 255).reshape(K, mbH, 4, 4)
-            X[..., r0:r0 + 4, c0:c0 + 4] = torch.where(
-                act4, recon, X[..., r0:r0 + 4, c0:c0 + 4])
-
-        # ---- Intra_8x8: 4 quad-order substeps --------------------------
-        act8 = (val & is_i8)[..., None, None]
-        for b in range(4) if has_t8 else ():
-            bx8, by8 = b & 1, b >> 1
-            r0, c0 = by8 * 8, bx8 * 8
-            mm = i8m_t[w][:, :, by8, bx8]
-            mode = mm & 15
-            aA, aB = (mm >> 4) & 1, (mm >> 5) & 1
-            aC, aD = (mm >> 6) & 1, (mm >> 7) & 1
-            if by8 == 0:
-                t8v = Bs[..., 15, c0:c0 + 8]
-                tr = As[..., 15, 0:8] if bx8 == 1 else Bs[..., 15, 8:16]
-            else:
-                t8v = X[..., 7, c0:c0 + 8]
-                tr = t8v[..., 7:8].expand(t8v.shape) if bx8 == 1 else \
-                    X[..., 7, 8:16]
-            t = torch.cat([t8v, torch.where((aC > 0)[..., None], tr,
-                                            t8v[..., 7:8])], -1)
-            l = A[..., r0:r0 + 8, 15] if bx8 == 0 else X[..., r0:r0 + 8, 7]
-            if bx8 == 0 and by8 == 0:
-                tl = Cs[..., 15, 15]
-            elif by8 == 0:
-                tl = Bs[..., 15, 7]
-            elif bx8 == 0:
-                tl = A[..., 7, 15]
-            else:
-                tl = X[..., 7, 7]
-            nb = torch.cat([l.flip(-1), tl[..., None], t], -1)
-            # §8.3.2.2.1 reference lowpass via matmul + boundary patches
-            nbf = _dense(nb, Wt["f8"]) >> 2
-            l0, t0, t1, l1 = nb[..., 7], nb[..., 9], nb[..., 10], nb[..., 6]
-            tl0 = nb[..., 8]
-            t0f = torch.where(aD > 0, (tl0 + 2 * t0 + t1 + 2) >> 2,
-                              (3 * t0 + t1 + 2) >> 2)
-            l0f = torch.where(aD > 0, (tl0 + 2 * l0 + l1 + 2) >> 2,
-                              (3 * l0 + l1 + 2) >> 2)
-            tlf = torch.where(
-                aD == 0, tl0,
-                _sel3((aA & aB) > 0, (t0 + 2 * tl0 + l0 + 2) >> 2,
-                      aB > 0, (3 * tl0 + t0 + 2) >> 2,
-                      torch.where(aA > 0, (3 * tl0 + l0 + 2) >> 2, tl0)))
-            nbf[..., 9] = t0f
-            nbf[..., 7] = l0f
-            nbf[..., 8] = tlf
-            nbf = torch.where((aB > 0)[..., None], nbf,
-                              torch.cat([nbf[..., :9], nb[..., 9:]], -1))
-            nbf = torch.where((aA > 0)[..., None], nbf,
-                              torch.cat([nb[..., :8], nbf[..., 8:]], -1))
-            dirp = _dir_matmul(nbf, Wt["8"], mode, 9, 64)
-            zero = torch.zeros_like(mode)
-            st = torch.where(aB > 0, nbf[..., 9:17].sum(-1, dtype=I32), zero)
-            sl = torch.where(aA > 0, nbf[..., :8].sum(-1, dtype=I32), zero)
-            dc = _dc3(aA, aB, st + sl, sl, st, 4)
-            pred = torch.where((mode == 2)[..., None], dc[..., None], dirp)
-            res = ry[..., r0:r0 + 8, c0:c0 + 8].reshape(K, mbH, 64)
-            recon = (pred + res).clamp(0, 255).reshape(K, mbH, 8, 8)
-            X[..., r0:r0 + 8, c0:c0 + 8] = torch.where(
-                act8, recon, X[..., r0:r0 + 8, c0:c0 + 8])
-
-        # ---- I16x16 ----------------------------------------------------
-        m = i16m
-        mode = m & 3
-        aA, aB = (m >> 4) & 1, (m >> 5) & 1
-        t = torch.where((aB > 0)[..., None], Bs[..., 15, :], 0)
-        l = torch.where((aA > 0)[..., None], A[..., :, 15], 0)
-        tl = Cs[..., 15, 15]
-        nb = torch.cat([l.flip(-1), tl[..., None], t], -1)
-        dirp = _dir_matmul(nb, Wt["16"], mode.clamp(0, 1), 2, 256)
-        st, sl = t.sum(-1, dtype=I32), l.sum(-1, dtype=I32)
-        dc = _dc3(aA, aB, st + sl, sl, st, 5)
-        hs = _plane_sums(nb, _I16_HP, _I16_HM, 8)
-        vs = _plane_sums(nb, _I16_VP, _I16_VM, 8)
-        a = 16 * (nb[..., 0] + nb[..., 32])
-        b_ = (5 * hs + 32) >> 6
-        c_ = (5 * vs + 32) >> 6
-        plane = ((a[..., None] + b_[..., None] * (xx16 - 7)
-                  + c_[..., None] * (yy16 - 7) + 16) >> 5).clamp(0, 255)
-        pred = torch.where((mode == 2)[..., None], dc[..., None],
-                           torch.where((mode == 3)[..., None], plane, dirp))
-        recon = (pred + ry.reshape(K, mbH, 256)).clamp(0, 255) \
-            .reshape(K, mbH, 16, 16)
-        X = torch.where((val & is_i16)[..., None, None], recon, X)
-        if has_pcm:
-            X = torch.where((val & is_pcm)[..., None, None], py_t[w], X)
-
-        # ---- chroma ----------------------------------------------------
-        m = chm
-        mode = m & 3
-        aA, aB = (m >> 4) & 1, (m >> 5) & 1
-        both, onlyA, onlyB = (aA & aB) > 0, aA > 0, aB > 0
-        out_c = []
-        for ci, (Ac, Bc, Cc, img, res_c) in enumerate((
-                (Ab, Bb, Cb_, Xcb, rcb), (Ar, Br, Cr_, Xcr, rcr))):
-            Bcs, Ccs = _shift_my(Bc), _shift_my(Cc)
-            t = torch.where((aB > 0)[..., None], Bcs[..., 7, :], 0)
-            l = torch.where((aA > 0)[..., None], Ac[..., :, 7], 0)
-            tl = Ccs[..., 7, 7]
-            nb = torch.cat([l.flip(-1), tl[..., None], t], -1)
-            dirp = _dir_matmul(nb, Wt["ch"], (mode - 1).clamp(0, 1), 2, 64)
-            ts0, ts1 = t[..., :4].sum(-1, dtype=I32), \
-                t[..., 4:].sum(-1, dtype=I32)
-            ls0, ls1 = l[..., :4].sum(-1, dtype=I32), \
-                l[..., 4:].sum(-1, dtype=I32)
-            g128 = torch.full_like(ts0, 128)
-            q00 = _sel3(both, (ts0 + ls0 + 4) >> 3, onlyA, (ls0 + 2) >> 2,
-                        torch.where(onlyB, (ts0 + 2) >> 2, g128))
-            q01 = _sel3(onlyB, (ts1 + 2) >> 2, onlyA, (ls0 + 2) >> 2,
-                        g128)
-            q10 = _sel3(onlyA, (ls1 + 2) >> 2, onlyB, (ts0 + 2) >> 2,
-                        g128)
-            q11 = _sel3(both, (ts1 + ls1 + 4) >> 3, onlyA, (ls1 + 2) >> 2,
-                        torch.where(onlyB, (ts1 + 2) >> 2, g128))
-            dcmap = torch.where(
-                bottom, torch.where(right, q11[..., None], q10[..., None]),
-                torch.where(right, q01[..., None], q00[..., None]))
-            hs = _plane_sums(nb, _CH_HP, _CH_HM, 4)
-            vs = _plane_sums(nb, _CH_VP, _CH_VM, 4)
-            a = 16 * (nb[..., 0] + nb[..., 16])
-            b_ = (34 * hs + 32) >> 6
-            c_ = (34 * vs + 32) >> 6
-            plane = ((a[..., None] + b_[..., None] * (xx8 - 3)
-                      + c_[..., None] * (yy8 - 3) + 16) >> 5).clamp(0, 255)
-            pred = torch.where((mode == 0)[..., None], dcmap,
-                               torch.where((mode == 3)[..., None], plane,
-                                           dirp))
-            recon = (pred + res_c.reshape(K, mbH, 64)).clamp(0, 255) \
-                .reshape(K, mbH, 8, 8)
-            img = torch.where((val & is_intra & ~is_pcm)[..., None, None],
-                              recon, img)
-            if has_pcm:
-                pcm = (pcb_t if ci == 0 else pcr_t)[w]
-                img = torch.where((val & is_pcm)[..., None, None], pcm, img)
-            out_c.append(img)
-        Xcb, Xcr = out_c
-
+        nbr = (Bs[..., 15, :], A[..., :, 15], As[..., 15, :],
+               Cs[..., 15, 15])
+        nbr_c = tuple((_shift_my(Bc)[..., 7, :], Ac[..., :, 7],
+                       _shift_my(Cc)[..., 7, 7])
+                      for Ac, Bc, Cc in ((Ab, Bb, Cb_), (Ar, Br, Cr_)))
+        X, (Xcb, Xcr) = _recon(
+            Xy_t[w], (Xcb_t[w], Xcr_t[w]), nbr, nbr_c, ry_t[w],
+            (rcb_t[w], rcr_t[w]), {k: v[w] for k, v in m_t.items()},
+            val_t[w][None, :], tuple(a[w] for a in pcm_t) if has_pcm
+            else None, has_t8, has_pcm, Wt)
         A, B, C = X, A, B
         Ab, Bb, Cb_ = Xcb, Ab, Bb
         Ar, Br, Cr_ = Xcr, Ar, Br
@@ -388,3 +417,171 @@ def intra_scan_sheared(y, cb, cr, res_y, res_cb, res_cr, p, mbW, mbH,
     return (_unshear_tiles(torch.stack(ey), mbW, mbH, 16, shift=0),
             _unshear_tiles(torch.stack(ecb), mbW, mbH, 8, shift=0),
             _unshear_tiles(torch.stack(ecr), mbW, mbH, 8, shift=0))
+
+
+# ---------------------------------------------------------------------------
+# Sparse intra: dependency-depth level rounds
+
+def intra_round_plane(flags, mbW, mbH, caps=(2, 4, 8)):
+    """Host-side dependency-depth plane for intra_rounds().
+
+    An intra macroblock only waits on *intra* causal neighbours (left,
+    top, top-left, top-right); inter neighbours are reconstructed by the
+    dense MC+residual pass before any intra work.  Depth 1 = no intra
+    neighbour; depth d = 1 + max(depth of intra neighbours).
+
+    Returns (lvl int32 [mbH, mbW], R) with R the smallest bucket from
+    `caps` covering the max depth, or None when the frame is too
+    intra-dense (more than 40% intra, or a chain deeper than caps[-1]):
+    the caller then uses the wavefront instead."""
+    M = (flags & MBF_INTRA) > 0
+    if M.mean() > 0.4:
+        return None
+    lvl = M.astype(np.int32)
+    for _ in range(caps[-1] + 1):
+        left = np.pad(lvl, ((0, 0), (1, 0)))[:, :-1]
+        top = np.pad(lvl, ((1, 0), (0, 0)))[:-1, :]
+        tl = np.pad(lvl, ((1, 0), (1, 0)))[:-1, :-1]
+        tr = np.pad(lvl, ((1, 0), (0, 1)))[:-1, 1:]
+        new = np.where(M, 1 + np.maximum.reduce([left, top, tl, tr]), 0)
+        if np.array_equal(new, lvl):
+            break
+        lvl = new
+    else:
+        return None
+    R = next((b for b in caps if int(lvl.max()) <= b), None)
+    if R is None:
+        return None
+    return lvl.astype(np.int32), R
+
+
+def _tiles(img, mbW, mbH, ts):
+    """[K, mbH*ts, mbW*ts] -> [K, mbH*mbW, ts, ts] (raster mb order)."""
+    K = img.shape[0]
+    return img.reshape(K, mbH, ts, mbW, ts).transpose(2, 3) \
+        .reshape(K, mbH * mbW, ts, ts)
+
+
+def _untile(X, mbW, mbH, ts):
+    K = X.shape[0]
+    return X.reshape(K, mbH, mbW, ts, ts).transpose(2, 3) \
+        .reshape(K, mbH * ts, mbW * ts)
+
+
+def _shift(a, dy, dx):
+    """out[:, my, mx] = a[:, my - dy, mx - dx], zeros where that falls
+    outside the [mbH, mbW] grid (dims 1 and 2)."""
+    out = torch.zeros_like(a)
+    H, W = a.shape[1], a.shape[2]
+    out[:, dy:, max(dx, 0):W + min(dx, 0)] = \
+        a[:, :H - dy, max(-dx, 0):W - max(dx, 0)]
+    return out
+
+
+def _edges(X, mbW, mbH, ts):
+    """The (T, L, TR, TL) neighbour samples of every tile of X
+    [K, N, ts, ts] (see _recon), read from the tiles themselves."""
+    K = X.shape[0]
+    g = X.reshape(K, mbH, mbW, ts, ts)
+    bot = g[..., ts - 1, :]
+    out = (_shift(bot, 1, 0), _shift(g[..., :, ts - 1], 0, 1),
+           _shift(bot, 1, -1), _shift(g[..., ts - 1, ts - 1], 1, 1))
+    return tuple(a.reshape((K, mbH * mbW) + a.shape[3:]) for a in out)
+
+
+def intra_rounds(y, cb, cr, res_y, res_cb, res_cr, p, lvl, mbW, mbH,
+                 rounds, has_t8=True, has_pcm=True):
+    """Level-rounds intra reconstruction of K intra-SPARSE frames.
+
+    Round r reconstructs every intra macroblock of dependency depth r
+    (intra_round_plane) at once as full-frame tensor work, reading its
+    neighbours from the frame as it stood at the round's start; the
+    arithmetic is `_recon`'s, as in the wavefront.  lvl [K, mbH, mbW]
+    int32, or None to recompute it here from mb_flags (`rounds` fixpoint
+    steps; the caller has checked that every depth is <= rounds).  Plain
+    PyTorch on every device (XLA, not Pallas, in the JAX package); each
+    call adds one to `intra_rounds.launches`, so a run shows which steps
+    took this route."""
+    K = y.shape[0]
+    N = mbH * mbW
+    if lvl is None:
+        intra = (p["mb_flags"] & MBF_INTRA) > 0
+        lvl = intra.to(I32)
+        for _ in range(rounds):
+            nbmax = torch.maximum(
+                torch.maximum(_shift(lvl, 0, 1), _shift(lvl, 1, 0)),
+                torch.maximum(_shift(lvl, 1, 1), _shift(lvl, 1, -1)))
+            lvl = torch.where(intra, 1 + nbmax, 0)
+    lvl = torch.as_tensor(lvl, device=y.device).reshape(K, N)
+
+    X = _tiles(y, mbW, mbH, 16)
+    Xc = (_tiles(cb, mbW, mbH, 8), _tiles(cr, mbW, mbH, 8))
+    ry = _tiles(res_y, mbW, mbH, 16)
+    rc = (_tiles(res_cb, mbW, mbH, 8), _tiles(res_cr, mbW, mbH, 8))
+    m = {"i4": _tiles(p["i4_modes"], mbW, mbH, 4),
+         "i16": p["i16_modes"].reshape(K, N),
+         "ch": p["ch_modes"].reshape(K, N),
+         "flags": p["mb_flags"].reshape(K, N)}
+    if has_t8:
+        m["i8"] = _tiles(p["i8_modes"], mbW, mbH, 2)
+    pcm = (_tiles(p["pcm_y"], mbW, mbH, 16),
+           _tiles(p["pcm_c"][:, 0], mbW, mbH, 8),
+           _tiles(p["pcm_c"][:, 1], mbW, mbH, 8)) if has_pcm else None
+    Wt = _weights(y.device)
+    for r in range(1, rounds + 1):
+        nbr = _edges(X, mbW, mbH, 16)
+        nbr_c = tuple((T, L, TL) for T, L, _, TL in
+                      (_edges(c, mbW, mbH, 8) for c in Xc))
+        X, Xc = _recon(X, Xc, nbr, nbr_c, ry, rc, m, lvl == r, pcm,
+                       has_t8, has_pcm, Wt)
+    intra_rounds.launches += 1
+    return (_untile(X, mbW, mbH, 16), _untile(Xc[0], mbW, mbH, 8),
+            _untile(Xc[1], mbW, mbH, 8))
+
+
+intra_rounds.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# The kernel
+
+# kernels/csrc/intra.cu's __constant__ tap tables, in its upload order
+_TAP_TABLES = np.concatenate([
+    a.astype(np.uint8).ravel()
+    for a in (I4_IDX, I8_IDX, I16_DIR_IDX, CH_DIR_IDX, I8_FILT_IDX)])
+
+
+def intra_batch(y, cb, cr, res_y, res_cb, res_cr, p, mbW, mbH,
+                has_t8=True, has_pcm=True):
+    """Intra reconstruction of K frames (the contract of
+    intra_scan_sheared).  CPU tensors: the plain `intra_scan_sheared`.
+    CUDA tensors: `kernels/csrc/intra.cu`, which reconstructs y, cb and cr
+    IN PLACE (the frames are the step's own intermediates) and returns
+    them.  Every launch adds one to `intra_batch.launches`."""
+    if y.device.type == "cpu":
+        return intra_scan_sheared(y, cb, cr, res_y, res_cb, res_cr, p,
+                                  mbW, mbH, has_t8, has_pcm)
+    from ..kernels import build
+    K = y.shape[0]
+    H, W = 16 * mbH, 16 * mbW
+    luma, chroma = (K, H, W), (K, H // 2, W // 2)
+    args = [(y, luma), (cb, chroma), (cr, chroma), (res_y, luma),
+            (res_cb, chroma), (res_cr, chroma),
+            (p["i4_modes"], (K, 4 * mbH, 4 * mbW)),
+            (p["i8_modes"], (K, 2 * mbH, 2 * mbW)),
+            (p["i16_modes"], (K, mbH, mbW)), (p["ch_modes"], (K, mbH, mbW)),
+            (p["mb_flags"], (K, mbH, mbW)), (p["pcm_y"], luma),
+            (p["pcm_c"], (K, 2, H // 2, W // 2))]
+    build.check_args(args, torch.int32, y.device)
+    with torch.cuda.device(y.device):
+        stream = torch.cuda.current_stream(y.device).cuda_stream
+        rc = build.lib("intra").e264t_intra(
+            *[ctypes.c_void_p(t.data_ptr()) for t, _ in args],
+            _TAP_TABLES.ctypes.data_as(ctypes.c_void_p), K, mbW, mbH,
+            int(has_t8), int(has_pcm), ctypes.c_void_p(stream))
+    build.raise_on(rc, "intra")
+    intra_batch.launches += 1
+    return y, cb, cr
+
+
+intra_batch.launches = 0

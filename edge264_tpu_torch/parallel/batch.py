@@ -27,7 +27,8 @@ from ..api import Frame, find_start_code
 from ..convert import planes_to_torch
 from ..native import EV_FORMAT, EV_FRAME_DONE, EV_UNPIN, NativeDecoder
 from ..ops import batched as B
-from ..ops.tables import MBF_BLEND, MBF_INTRA, MBF_IPCM, MBF_T8x8
+from ..ops.intra import intra_round_plane
+from ..ops.tables import MBF_BLEND, MBF_IPCM, MBF_T8x8
 from .gop import split_gops
 
 RING_SLOTS = 8      # initial per-lane reference ring slots (grows by doubling)
@@ -174,12 +175,17 @@ def _decode_all(gops, lanes, sink, device):
         yield from _decode_group(gops[base:base + lanes], sink, device)
 
 
-def _intra_mode(planes_list):
-    """"sheared" when any live lane has an intra (or PCM) macroblock, else
-    "skip" (the stage is then the identity)."""
-    return "sheared" if any(
-        (np.asarray(pl.mb_flags) & MBF_INTRA).any()
-        for pl in planes_list if pl is not None) else "skip"
+def _intra_mode(tabs):
+    """The step's intra route from the live lanes' depth planes
+    (intra_round_plane): "skip" when no lane has an intra mb, "rounds{R}"
+    when every lane is intra-sparse (R the largest bucket; the buckets
+    nest), else "sheared": one dense lane (an IDR) sends the whole step
+    to the wavefront, as the lanes share one step."""
+    if any(t is None for t in tabs):
+        return "sheared"
+    if all(int(t[0].max()) == 0 for t in tabs):
+        return "skip"
+    return f"rounds{max(t[1] for t in tabs)}"
 
 
 def _decode_group(group, sink, device):
@@ -238,7 +244,7 @@ def _decode_group(group, sink, device):
                 ln.S = S2
             S = S2
 
-        planes_list = []
+        planes_list, tabs = [], []
         sm4s, sm8s, ring_slots, slot_maps = [], [], [], []
         for ln in lane_objs:
             if len(ln.done_slots) > step:
@@ -254,6 +260,7 @@ def _decode_group(group, sink, device):
                 if np.asarray(pl.wp).any() or np.asarray(pl.wp8).any():
                     keep |= {"wp", "wp8"}
                 planes_list.append(pl)
+                tabs.append(intra_round_plane(flags, mbW, mbH))
                 ws8 = np.full((6, 64), 16, np.int32)
                 ws8[0] = pl.sm8[0]
                 ws8[1] = pl.sm8[1]
@@ -279,7 +286,7 @@ def _decode_group(group, sink, device):
                 ring_slots.append(S)
                 slot_maps.append(np.zeros(32, np.int32))
 
-        intra_mode = _intra_mode(planes_list)
+        intra_mode = _intra_mode(tabs)
         # borrows uploaded at earlier steps are safe to release now; then
         # kick off the NEXT step's entropy so it overlaps this step's
         # upload and device work (native calls only while the lane

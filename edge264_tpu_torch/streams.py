@@ -17,6 +17,7 @@ probes `import tools.avcgen` sees no change.
     data = streams.avcgen().gen_random_cabac_ipb_stream(8, 6, n_gops=1)
     with streams.scoped_tools():        # `import tools.avcgen` resolves to
         ...                             # the private modules in the block
+    broken = streams.truncate_slice(data, 1, frac=0.5)   # a damaged slice
 """
 
 from __future__ import annotations
@@ -29,6 +30,8 @@ import re
 import sys
 import threading
 import types
+
+from .api import find_start_code
 
 _REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _TOOLS = os.path.join(_REPO, "tools")
@@ -120,3 +123,20 @@ def scoped_tools():
 def avcgen():
     """The private `tools.avcgen` module (gen_random_*_stream, ...)."""
     return _private_tools()["tools.avcgen"]
+
+
+def truncate_slice(data: bytes, slice_index: int, frac: float = 0.5) -> bytes:
+    """Cut the payload of the `slice_index`-th slice NAL (types 1 and 5) at
+    `frac` of its length, keeping every later NAL: a stream that exercises
+    slice error recovery and concealment."""
+    starts = []
+    pos = find_start_code(data, 0)
+    while pos < len(data):
+        starts.append(pos)
+        pos = find_start_code(data, pos + 3)
+    starts.append(len(data))
+    slices = [i for i in range(len(starts) - 1)
+              if data[starts[i] + 3] & 31 in (1, 5)]
+    s = slices[slice_index]
+    cut = starts[s] + max(5, int((starts[s + 1] - starts[s]) * frac))
+    return data[:cut] + data[starts[s + 1]:]

@@ -1,8 +1,9 @@
 """Port deblocking == the JAX package's: deblock_bs against
 jaxdec.deblock_bs, the plain deblock_scan against jaxdec.deblock_scan and
 against the Pallas kernel (interpret mode), on the random inputs of
-tests/test_pallas_deblock.py.  The CUDA kernel against the plain version:
-tests/test_torch_kernels_cuda.py."""
+tests/test_pallas_deblock.py; blend_recovered against
+jaxdec.blend_recovered on random planes.  The CUDA kernel against the
+plain version: tests/test_torch_kernels_cuda.py."""
 
 import numpy as np
 import pytest
@@ -113,3 +114,35 @@ def test_deblock_bs_matches_jax(seed):
         assert b.dtype == torch.int32
         assert np.array_equal(np.asarray(a), b.numpy())
 
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_blend_recovered_matches_jax(seed):
+    """Random frames, blend flags on about half the mbs (some runs of
+    neighbours, some slice boundaries) and error percentages past both
+    ends of the 0..100 range."""
+    rng = np.random.RandomState(seed)
+    K, mbW, mbH = 2, 6, 4
+    frames = [_rand_frame(rng, mbW, mbH) for _ in range(K)]
+    planes = []
+    for _ in range(K):
+        planes.append({
+            "mb_flags": (rng.randint(0, 2, (mbH, mbW)) * (256 | 1)
+                         | 32).astype(np.int32),
+            "slice_id": np.sort(rng.randint(0, 3, mbH * mbW))
+            .reshape(mbH, mbW).astype(np.int32),
+            "mb_errors": rng.randint(0, 130, (mbH, mbW)).astype(np.int32)})
+    want = [J.blend_recovered(*[jnp.asarray(a) for a in f[:3]],
+                              {k: jnp.asarray(v) for k, v in pl.items()})
+            for f, pl in zip(frames, planes)]
+    p = {k: torch.as_tensor(np.stack([pl[k] for pl in planes]))
+         for k in planes[0]}
+    got = D.blend_recovered(*[torch.as_tensor(np.stack([f[i] for f in frames]))
+                              for i in range(3)], p)
+    changed = False
+    for i, g in enumerate(got):
+        assert g.dtype == torch.int32
+        for k in range(K):
+            assert np.array_equal(np.asarray(want[k][i]), g[k].numpy())
+            changed |= not np.array_equal(frames[k][i], g[k].numpy())
+    assert changed

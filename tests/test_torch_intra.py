@@ -1,5 +1,6 @@
 """Port sheared intra scan == jaxdec.intra_scan_sheared (exact), with the
-Intra_8x8 and PCM paths on and off."""
+Intra_8x8 and PCM paths on and off; the intra kernel wrapper's CPU route
+== pallas_intra.intra_pallas_batch in interpret mode."""
 
 import numpy as np
 import pytest
@@ -12,7 +13,8 @@ import jax.numpy as jnp  # noqa: E402
 import edge264_tpu.ops.jaxdec as J  # noqa: E402
 from __graft_entry__ import _example_planes  # noqa: E402
 from edge264_tpu_torch.convert import planes_to_torch  # noqa: E402
-from edge264_tpu_torch.ops.intra import intra_scan_sheared  # noqa: E402
+from edge264_tpu_torch.ops.intra import intra_batch, \
+    intra_scan_sheared  # noqa: E402
 
 
 def _inputs(seed, mbW, mbH, K, t8):
@@ -70,6 +72,26 @@ def test_intra_scan_sheared_matches_jax(has_t8, has_pcm):
     p = planes_to_torch(planes, keep, "cpu")
     got = intra_scan_sheared(*[torch.as_tensor(a) for a in imgs], p,
                              mbW, mbH, has_t8, has_pcm)
+    for name, a, b in zip(("y", "cb", "cr"), want, got):
+        assert b.dtype == torch.int32, name
+        assert np.array_equal(np.asarray(a), b.numpy()), name
+
+
+def test_intra_batch_matches_pallas_interpret():
+    """The kernel wrapper's contract on the CPU (the plain scan) against the
+    TPU kernel itself, run in interpret mode."""
+    from edge264_tpu.ops.pallas_intra import intra_pallas_batch
+    mbW, mbH, K = 5, 3, 2
+    planes, imgs = _inputs(9, mbW, mbH, K, True)
+    p_np = {k: np.stack([pl[k] for pl in planes]) for k in planes[0]}
+    want = intra_pallas_batch(*[jnp.asarray(a) for a in imgs],
+                              {k: jnp.asarray(v) for k, v in p_np.items()},
+                              mbW, mbH, interpret=True)
+    p = planes_to_torch(planes, {"coef_y8", "i8_modes", "pcm_y", "pcm_c"},
+                        "cpu")
+    n = intra_batch.launches
+    got = intra_batch(*[torch.as_tensor(a) for a in imgs], p, mbW, mbH)
+    assert intra_batch.launches == n          # no kernel on the CPU
     for name, a, b in zip(("y", "cb", "cr"), want, got):
         assert b.dtype == torch.int32, name
         assert np.array_equal(np.asarray(a), b.numpy()), name

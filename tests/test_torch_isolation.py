@@ -1,5 +1,5 @@
 """The port stands alone: it imports neither jax nor the JAX package, its
-entry point runs on the CPU only when asked to, and its stream loader
+entry points run on the CPU only when asked to, and its stream loader
 leaves the `tools` modules as it found them."""
 
 import ast
@@ -12,6 +12,7 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from edge264_tpu_torch import streams  # noqa: E402
+from edge264_tpu_torch.api import Decoder, decode_annexb  # noqa: E402
 from edge264_tpu_torch.parallel.batch import \
     decode_gops_batched  # noqa: E402
 
@@ -38,10 +39,12 @@ mods = [m.name for m in pkgutil.walk_packages(edge264_tpu_torch.__path__,
 for m in mods:
     importlib.import_module(m)
 from edge264_tpu_torch import streams
+from edge264_tpu_torch.api import decode_annexb
 from edge264_tpu_torch.parallel.batch import decode_gops_batched
 data = streams.avcgen().gen_random_cabac_ipb_stream(
     2, 2, n_gops=1, seed=1, closed=True, gop_pb=1)
 n = len(list(decode_gops_batched(data, lanes=1, device="cpu")))
+assert len(list(decode_annexb(data, device="cpu"))) == n
 bad = [m for m in sys.modules if m.split(".")[0] in %r]
 print("OK", len(mods), n, bad)
 """ % (BLOCKED,)
@@ -59,7 +62,8 @@ def test_imports_and_decodes_with_jax_blocked():
 
 def _py_files():
     root = os.path.join(REPO, "edge264_tpu_torch")
-    out = [os.path.join(REPO, "chip_smoke.py")]
+    out = [os.path.join(REPO, n) for n in ("chip_smoke.py",
+                                           "profile_decode.py")]
     for d, _, files in os.walk(root):
         out += [os.path.join(d, f) for f in files if f.endswith(".py")]
     return out
@@ -83,11 +87,14 @@ def test_no_jax_import_anywhere_in_the_port():
 
 def test_entry_point_needs_a_card_unless_told_cpu(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    with pytest.raises(RuntimeError, match="CUDA"):
-        decode_gops_batched(b"")
-    with pytest.raises(RuntimeError, match="CUDA"):
-        decode_gops_batched(b"", device="cuda")
+    for call in (lambda **kw: decode_gops_batched(b"", **kw),
+                 lambda **kw: decode_annexb(b"", **kw), Decoder):
+        for kw in ({}, {"device": "cuda"}):
+            with pytest.raises(RuntimeError, match="CUDA"):
+                call(**kw)
     assert list(decode_gops_batched(b"", device="cpu")) == []
+    assert list(decode_annexb(b"", device="cpu")) == []
+    Decoder(device="cpu").close()
 
 
 def _tools_state():

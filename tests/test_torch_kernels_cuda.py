@@ -1,5 +1,5 @@
 """The hand-written CUDA kernels against their plain PyTorch versions, and
-the lockstep decode on the card against the CPU path.  These need a CUDA
+the lockstep and single-frame decodes on the card against the CPU path.  These need a CUDA
 device (the kernels have no CPU mode) and skip without one.  The file
 imports nothing of JAX, so on a machine with a card and no JAX:
 
@@ -13,8 +13,10 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from edge264_tpu_torch import streams  # noqa: E402
+from edge264_tpu_torch.api import decode_annexb  # noqa: E402
 from edge264_tpu_torch.convert import planes_to_torch  # noqa: E402
 from edge264_tpu_torch.ops import deblock as D  # noqa: E402
+from edge264_tpu_torch.ops import intra as I  # noqa: E402
 from edge264_tpu_torch.ops import mc as M  # noqa: E402
 from edge264_tpu_torch.parallel.batch import \
     decode_gops_batched  # noqa: E402
@@ -102,6 +104,52 @@ def test_mc_kernels_match_plain(dev, has_b):
             assert torch.equal(a, b)
 
 
+def intra_inputs(rng, K, mbW, mbH, t8, pcm):
+    """Random frames, residuals and planes for the intra kernel: every mb
+    kind (I4x4, I16x16, PCM, inter, I8x8), random availability bits, and
+    some directional modes outside the tables (they predict 0)."""
+    H, W = 16 * mbH, 16 * mbW
+    kinds = rng.randint(0, 5, (K, mbH, mbW))
+    fl = np.choose(kinds, [1 | 32, 1 | 2 | 32, (1 | 4 if pcm else 1) | 32,
+                           64 | 32, (1 | 8 if t8 else 1) | 32])
+    p = {"mb_flags": fl,
+         "i4_modes": rng.randint(0, 128, (K, 4 * mbH, 4 * mbW)),
+         "i8_modes": rng.randint(0, 10, (K, 2 * mbH, 2 * mbW))
+         | (rng.randint(0, 16, (K, 2 * mbH, 2 * mbW)) << 4),
+         "i16_modes": rng.randint(0, 4, (K, mbH, mbW))
+         | (rng.randint(0, 4, (K, mbH, mbW)) << 4),
+         "ch_modes": rng.randint(0, 4, (K, mbH, mbW))
+         | (rng.randint(0, 4, (K, mbH, mbW)) << 4),
+         "pcm_y": rng.randint(0, 256, (K, H, W)),
+         "pcm_c": rng.randint(0, 256, (K, 2, H // 2, W // 2))}
+    frames = [rng.randint(0, 256, (K, H, W)),
+              rng.randint(0, 256, (K, H // 2, W // 2)),
+              rng.randint(0, 256, (K, H // 2, W // 2)),
+              rng.randint(-40, 40, (K, H, W)),
+              rng.randint(-40, 40, (K, H // 2, W // 2)),
+              rng.randint(-40, 40, (K, H // 2, W // 2))]
+    return p, frames
+
+
+@pytest.mark.parametrize("has_t8,has_pcm", [(True, True), (False, False)])
+def test_intra_kernel_matches_plain(dev, has_t8, has_pcm):
+    K, mbW, mbH = 2, 120, 3
+    p, frames = intra_inputs(np.random.RandomState(8 + has_t8), K, mbW, mbH,
+                             has_t8, has_pcm)
+    p = {k: torch.as_tensor(v, dtype=torch.int32, device=dev)
+         for k, v in p.items()}
+    frames = [torch.as_tensor(f, dtype=torch.int32, device=dev)
+              for f in frames]
+    want = I.intra_scan_sheared(*frames, p, mbW, mbH, has_t8, has_pcm)
+    n = I.intra_batch.launches
+    got = I.intra_batch(*[f.clone() for f in frames], p, mbW, mbH, has_t8,
+                        has_pcm)
+    torch.cuda.synchronize()
+    assert I.intra_batch.launches == n + 1
+    for a, b in zip(want, got):
+        assert torch.equal(a, b)
+
+
 def test_lockstep_on_card_matches_cpu(dev):
     data = b"".join(streams.avcgen().gen_random_cabac_ipb_stream(
         8, 6, n_gops=1, seed=s, closed=True, gop_pb=1 + s, density=0.1,
@@ -112,3 +160,22 @@ def test_lockstep_on_card_matches_cpu(dev):
     for a, b in zip(want, got):
         for n in ("y", "cb", "cr"):
             assert np.array_equal(getattr(a, n), getattr(b, n))
+
+
+def test_decode_annexb_on_card_matches_cpu(dev):
+    data = streams.avcgen().gen_random_cabac_ipb_stream(
+        8, 6, n_gops=1, seed=4, closed=True, gop_pb=2, density=0.1,
+        max_level=4, intra_prob=0.1)
+    want = list(decode_annexb(data, device="cpu"))
+    n = (I.intra_batch.launches, D.deblock_batch.launches,
+         M.mc_luma.launches, M.mc_chroma.launches)
+    got = list(decode_annexb(data))
+    assert len(got) == len(want) == 5
+    for a, b in zip(want, got):
+        assert a.frame_id == b.frame_id
+        for c in ("y", "cb", "cr"):
+            assert np.array_equal(getattr(a, c), getattr(b, c))
+    # intra + deblock on every frame, MC on the four with a reference
+    assert (I.intra_batch.launches - n[0], D.deblock_batch.launches - n[1],
+            M.mc_luma.launches - n[2], M.mc_chroma.launches - n[3]) == \
+        (5, 5, 4, 4)

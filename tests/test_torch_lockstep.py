@@ -1,6 +1,7 @@
 """The port's lockstep decode on the CPU == the JAX package's
-decode_gops_batched, frame for frame and byte for byte; the port's native
-front end == the JAX package's; device digests == host_frame_digest."""
+decode_gops_batched, frame for frame and byte for byte, taking the same
+intra route at every step; the port's native front end == the JAX
+package's; device digests == host_frame_digest."""
 
 import numpy as np
 import pytest
@@ -8,12 +9,14 @@ import pytest
 torch = pytest.importorskip("torch")
 
 import __graft_entry__  # noqa: E402
+import edge264_tpu.ops.batched as JB  # noqa: E402
 from edge264_tpu.native import NativeDecoder as JNativeDecoder  # noqa: E402
 from edge264_tpu.parallel.batch import \
     decode_gops_batched as jax_decode  # noqa: E402
 from edge264_tpu_torch import streams  # noqa: E402
 from edge264_tpu_torch.api import find_start_code  # noqa: E402
 from edge264_tpu_torch.convert import PLANE_KEYS  # noqa: E402
+from edge264_tpu_torch.ops import batched as B  # noqa: E402
 from edge264_tpu_torch.native import EV_FRAME_DONE, NativeDecoder  # noqa
 from edge264_tpu_torch.ops.batched import host_frame_digest  # noqa: E402
 from edge264_tpu_torch.parallel.batch import \
@@ -51,13 +54,45 @@ def _assert_digests(frames, digests):
                                                      f.cr_mvc)
 
 
-def test_cabac_ipb_uneven_gops_matches_jax():
+def _recording(module, modes):
+    """Wrap module.decode_batch_step to append each step's intra_mode."""
+    step = module.decode_batch_step
+
+    def rec(*a, **kw):
+        modes.append(kw["intra_mode"])
+        return step(*a, **kw)
+    return rec
+
+
+@pytest.fixture(scope="module")
+def uneven():
+    """The uneven IPB stream, JAX's frames and JAX's per-step intra
+    routes."""
     data = _uneven_ipb()
-    want = list(jax_decode(data, lanes=2))
+    modes = []
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(JB, "decode_batch_step", _recording(JB, modes))
+        want = list(jax_decode(data, lanes=2))
+    return data, want, modes
+
+
+def test_cabac_ipb_uneven_gops_matches_jax(uneven):
+    data, want, _ = uneven
     got = list(decode_gops_batched(data, lanes=2, device="cpu"))
     _assert_same_frames(want, got)
     _assert_digests(got, list(decode_gops_batched(
         data, lanes=2, sink="digest", device="cpu")))
+
+
+def test_intra_route_per_step_matches_jax(uneven, monkeypatch):
+    """IDR steps take the wavefront, intra-sparse P/B steps the level
+    rounds, exactly as the JAX package's lockstep loop chooses."""
+    data, _, want = uneven
+    got = []
+    monkeypatch.setattr(B, "decode_batch_step", _recording(B, got))
+    list(decode_gops_batched(data, lanes=2, device="cpu"))
+    assert got == want
+    assert got[0] == "sheared" and any(m.startswith("rounds") for m in got)
 
 
 def test_dryrun_stream_high_mvc_matches_jax():
