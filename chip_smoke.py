@@ -24,7 +24,10 @@ Phases (any failure raises and exits non-zero):
   4. single   the single-frame path: decode_annexb on cuda over the same
               stream, every frame byte-identical to phase 3's CPU frames,
               all four kernels launched.
-  5. report   per-stage device ms and frames/s of both paths, then the
+  5. profile  one more decode of each path under torch.profiler: the
+              device's busy ms and idle share of the wall time, and the
+              device ms of the top kernels.
+  6. report   per-stage device ms and frames/s of both paths, then the
               `kernels` JSON line, the card's name and power limit, and
               the final JSON line.  Details also go to
               chiprun_out/chip_smoke.json.
@@ -39,6 +42,8 @@ import time
 
 import numpy as np
 import torch
+from torch.autograd import DeviceType
+from torch.profiler import ProfilerActivity, profile
 
 from edge264_tpu_torch import native, streams
 from edge264_tpu_torch.api import decode_annexb
@@ -171,44 +176,46 @@ def deblock_inputs(dev, seed=11):
             ri(0, 5, (K, 4 * MBH, 4 * MBW)), ri(0, 5, (K, 4 * MBH, 4 * MBW)))
 
 
-def intra_inputs(dev, seed, sparse=False):
-    """Random frames, residuals and planes for the intra kernel at 1080p:
-    every mb kind (I4x4, I16x16, PCM, inter, I8x8), random availability
-    bits, some directional modes outside the tables.  sparse=True keeps
-    ~5% of the mbs intra (the rest inter), as in the decode's P/B frames,
-    and returns each lane's intra_round_plane too."""
-    rng = np.random.RandomState(seed)
-    H, W = 16 * MBH, 16 * MBW
-    kinds = rng.randint(0, 5, (K, MBH, MBW))
-    fl = np.choose(kinds, [1 | 32, 1 | 2 | 32, 1 | 4 | 32, 64 | 32,
-                           1 | 8 | 32])
-    tabs = None
-    if sparse:
-        fl = np.where(rng.rand(K, MBH, MBW) < 0.05, fl, 64 | 32)
-        tabs = [I.intra_round_plane(f, MBW, MBH) for f in fl]
-        if any(t is None for t in tabs):
-            raise AssertionError("sparse intra input has no depth plane")
+def intra_inputs(rng, K, mbW, mbH, t8=True, pcm=True, intra_share=1.0):
+    """Random frames, residuals and planes for the intra kernel: every mb
+    kind (I4x4, I16x16, PCM, inter, I8x8), random availability bits, and
+    some directional modes outside the tables (they predict 0).  With
+    intra_share < 1 all but that share of the mbs turn inter, as in a
+    decode's P/B frames.  Returns numpy (planes, [y, cb, cr, res_y,
+    res_cb, res_cr])."""
+    H, W = 16 * mbH, 16 * mbW
+    kinds = rng.randint(0, 5, (K, mbH, mbW))
+    fl = np.choose(kinds, [1 | 32, 1 | 2 | 32, (1 | 4 if pcm else 1) | 32,
+                           64 | 32, (1 | 8 if t8 else 1) | 32])
+    if intra_share < 1:
+        fl = np.where(rng.rand(K, mbH, mbW) < intra_share, fl, 64 | 32)
     p = {"mb_flags": fl,
-         "i4_modes": rng.randint(0, 128, (K, 4 * MBH, 4 * MBW)),
-         "i8_modes": rng.randint(0, 10, (K, 2 * MBH, 2 * MBW))
-         | (rng.randint(0, 16, (K, 2 * MBH, 2 * MBW)) << 4),
-         "i16_modes": rng.randint(0, 4, (K, MBH, MBW))
-         | (rng.randint(0, 4, (K, MBH, MBW)) << 4),
-         "ch_modes": rng.randint(0, 4, (K, MBH, MBW))
-         | (rng.randint(0, 4, (K, MBH, MBW)) << 4),
+         "i4_modes": rng.randint(0, 128, (K, 4 * mbH, 4 * mbW)),
+         "i8_modes": rng.randint(0, 10, (K, 2 * mbH, 2 * mbW))
+         | (rng.randint(0, 16, (K, 2 * mbH, 2 * mbW)) << 4),
+         "i16_modes": rng.randint(0, 4, (K, mbH, mbW))
+         | (rng.randint(0, 4, (K, mbH, mbW)) << 4),
+         "ch_modes": rng.randint(0, 4, (K, mbH, mbW))
+         | (rng.randint(0, 4, (K, mbH, mbW)) << 4),
          "pcm_y": rng.randint(0, 256, (K, H, W)),
          "pcm_c": rng.randint(0, 256, (K, 2, H // 2, W // 2))}
-    p = {k: torch.as_tensor(v, dtype=torch.int32, device=dev)
-         for k, v in p.items()}
-    frames = [torch.as_tensor(rng.randint(lo, hi, shape), dtype=torch.int32,
-                              device=dev)
-              for lo, hi, shape in ((0, 256, (K, H, W)),
-                                    (0, 256, (K, H // 2, W // 2)),
-                                    (0, 256, (K, H // 2, W // 2)),
-                                    (-40, 40, (K, H, W)),
-                                    (-40, 40, (K, H // 2, W // 2)),
-                                    (-40, 40, (K, H // 2, W // 2)))]
-    return p, frames, tabs
+    frames = [rng.randint(0, 256, (K, H, W)),
+              rng.randint(0, 256, (K, H // 2, W // 2)),
+              rng.randint(0, 256, (K, H // 2, W // 2)),
+              rng.randint(-40, 40, (K, H, W)),
+              rng.randint(-40, 40, (K, H // 2, W // 2)),
+              rng.randint(-40, 40, (K, H // 2, W // 2))]
+    return p, frames
+
+
+def intra_case(dev, seed, intra_share=1.0):
+    """intra_inputs at 1080p, K lanes, as int32 tensors on `dev`."""
+    p, frames = intra_inputs(np.random.RandomState(seed), K, MBW, MBH,
+                             intra_share=intra_share)
+    return ({k: torch.as_tensor(v, dtype=torch.int32, device=dev)
+             for k, v in p.items()},
+            [torch.as_tensor(f, dtype=torch.int32, device=dev)
+             for f in frames])
 
 
 def check_equal(name, got, want):
@@ -282,7 +289,7 @@ def phase_kernels(dev):
                           bytes=nbytes, ops=ops)
     log(f"[kernels] deblock: exact; {ms:.3f} ms vs plain {plain_ms:.3f} ms")
 
-    p, frames, _ = intra_inputs(dev, 13)
+    p, frames = intra_case(dev, 13)
     want = I.intra_scan_sheared(*frames, p, MBW, MBH)
     got = I.intra_batch(*[f.clone() for f in frames], p, MBW, MBH)
     err = check_equal("intra", got, want)
@@ -291,9 +298,10 @@ def phase_kernels(dev):
     it = iter(copies)
     ms = cuda_ms(lambda: I.intra_batch(*next(it), p, MBW, MBH), 5)
     plain_ms = cuda_ms(lambda: I.intra_scan_sheared(*frames, p, MBW, MBH), 1)
-    # least bytes: the frames, residuals and PCM samples read once, the
-    # frames written once, the mode and flag planes read once (int32)
-    nbytes = 4 * (2 * sum(f.numel() for f in frames)
+    # least bytes: the frames read and written once, the residuals, PCM
+    # samples, mode and flag planes read once (int32)
+    nbytes = 4 * (2 * sum(f.numel() for f in frames[:3])
+                  + sum(f.numel() for f in frames[3:])
                   + sum(t.numel() for t in p.values()))
     # operations: ~12 integer ops per reconstructed sample (3-tap sum or
     # DC/plane term, residual add, clip, address), 384 samples per mb of
@@ -306,7 +314,11 @@ def phase_kernels(dev):
 
     # intra-sparse input: the level rounds (the lockstep route on P/B
     # steps) against the kernel on the same frames
-    p, frames, tabs = intra_inputs(dev, 17, sparse=True)
+    p, frames = intra_case(dev, 17, intra_share=0.05)
+    tabs = [I.intra_round_plane(f, MBW, MBH)
+            for f in p["mb_flags"].cpu().numpy()]
+    if any(t is None for t in tabs):
+        raise AssertionError("sparse intra input has no depth plane")
     R = max(t[1] for t in tabs)
     want = I.intra_rounds(*frames, p, None, MBW, MBH, R)
     got = I.intra_batch(*[f.clone() for f in frames], p, MBW, MBH)
@@ -476,6 +488,63 @@ def phase_single(data, ref):
     return res
 
 
+# ---------------------------------------------------------------------------
+# phase 5: device busy and idle shares of both paths under torch.profiler
+
+PROFILE_TOP = 12
+
+
+def busy_us(events):
+    """Length of the union of the device events' time intervals (us)."""
+    iv = sorted((e.time_range.start, e.time_range.end) for e in events)
+    total, end = 0.0, float("-inf")
+    for a, b in iv:
+        if b > end:
+            total += b - max(a, end)
+            end = b
+    return total
+
+
+def profiled(run):
+    """One traced decode (the path already warm): wall ms with the device
+    synchronized at both ends, device busy ms (the union of the kernel
+    and copy intervals), the idle share 1 - busy / wall, and the device
+    ms of the top kernels by name."""
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        n = len(list(run()))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    if not dev:
+        raise RuntimeError("the trace holds no device time")
+    busy = busy_us(dev) / 1e3
+    by_name = {}
+    for e in dev:
+        by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:PROFILE_TOP]
+    return {"frames": n, "wall_ms": wall * 1e3, "device_busy_ms": busy,
+            "idle_share": 1 - busy / (wall * 1e3),
+            "device_events": len(dev),
+            "top_kernels_ms": [(k[:80], v / 1e3) for k, v in top]}
+
+
+def phase_profile(data):
+    res = {}
+    for name, run in (
+            ("decode_gops_batched", lambda: decode_gops_batched(data,
+                                                                lanes=2)),
+            ("decode_annexb", lambda: decode_annexb(data))):
+        res[name] = r = profiled(run)
+        log(f"[profile] {name}: device {100 * r['idle_share']:.1f}% idle "
+            f"({r['device_busy_ms']:.1f} ms busy of {r['wall_ms']:.1f} ms "
+            f"wall); top: " + ", ".join(f"{k[:40]} {v:.1f} ms"
+                                        for k, v in r["top_kernels_ms"][:3]))
+    return res
+
+
 def main():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: no CUDA device")
@@ -488,6 +557,7 @@ def main():
     dec, data, ref = phase_decode()
     report["decode"] = dec
     report["single"] = one = phase_single(data, ref)
+    report["profile"] = phase_profile(data)
 
     steps = dec["steps"]
     for n, v in dec["stage_ms"].items():

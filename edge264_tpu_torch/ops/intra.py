@@ -422,7 +422,10 @@ def intra_scan_sheared(y, cb, cr, res_y, res_cb, res_cr, p, mbW, mbH,
 # ---------------------------------------------------------------------------
 # Sparse intra: dependency-depth level rounds
 
-def intra_round_plane(flags, mbW, mbH, caps=(2, 4, 8)):
+_ROUND_BUCKETS = (2, 4, 8)
+
+
+def intra_round_plane(flags, mbW, mbH):
     """Host-side dependency-depth plane for intra_rounds().
 
     An intra macroblock only waits on *intra* causal neighbours (left,
@@ -430,15 +433,15 @@ def intra_round_plane(flags, mbW, mbH, caps=(2, 4, 8)):
     dense MC+residual pass before any intra work.  Depth 1 = no intra
     neighbour; depth d = 1 + max(depth of intra neighbours).
 
-    Returns (lvl int32 [mbH, mbW], R) with R the smallest bucket from
-    `caps` covering the max depth, or None when the frame is too
-    intra-dense (more than 40% intra, or a chain deeper than caps[-1]):
-    the caller then uses the wavefront instead."""
+    Returns (lvl int32 [mbH, mbW], R) with R the smallest of
+    _ROUND_BUCKETS covering the max depth, or None when the frame is too
+    intra-dense (more than 40% intra, or a chain deeper than the last
+    bucket): the caller then uses the wavefront instead."""
     M = (flags & MBF_INTRA) > 0
     if M.mean() > 0.4:
         return None
     lvl = M.astype(np.int32)
-    for _ in range(caps[-1] + 1):
+    for _ in range(_ROUND_BUCKETS[-1] + 1):
         left = np.pad(lvl, ((0, 0), (1, 0)))[:, :-1]
         top = np.pad(lvl, ((1, 0), (0, 0)))[:-1, :]
         tl = np.pad(lvl, ((1, 0), (1, 0)))[:-1, :-1]
@@ -449,7 +452,7 @@ def intra_round_plane(flags, mbW, mbH, caps=(2, 4, 8)):
         lvl = new
     else:
         return None
-    R = next((b for b in caps if int(lvl.max()) <= b), None)
+    R = next((b for b in _ROUND_BUCKETS if int(lvl.max()) <= b), None)
     if R is None:
         return None
     return lvl.astype(np.int32), R

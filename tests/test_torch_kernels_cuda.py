@@ -12,6 +12,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from chip_smoke import intra_inputs  # noqa: E402
 from edge264_tpu_torch import streams  # noqa: E402
 from edge264_tpu_torch.api import decode_annexb  # noqa: E402
 from edge264_tpu_torch.convert import planes_to_torch  # noqa: E402
@@ -102,33 +103,6 @@ def test_mc_kernels_match_plain(dev, has_b):
         assert len(got) == len(want) == n
         for a, b in zip(got, want):
             assert torch.equal(a, b)
-
-
-def intra_inputs(rng, K, mbW, mbH, t8, pcm):
-    """Random frames, residuals and planes for the intra kernel: every mb
-    kind (I4x4, I16x16, PCM, inter, I8x8), random availability bits, and
-    some directional modes outside the tables (they predict 0)."""
-    H, W = 16 * mbH, 16 * mbW
-    kinds = rng.randint(0, 5, (K, mbH, mbW))
-    fl = np.choose(kinds, [1 | 32, 1 | 2 | 32, (1 | 4 if pcm else 1) | 32,
-                           64 | 32, (1 | 8 if t8 else 1) | 32])
-    p = {"mb_flags": fl,
-         "i4_modes": rng.randint(0, 128, (K, 4 * mbH, 4 * mbW)),
-         "i8_modes": rng.randint(0, 10, (K, 2 * mbH, 2 * mbW))
-         | (rng.randint(0, 16, (K, 2 * mbH, 2 * mbW)) << 4),
-         "i16_modes": rng.randint(0, 4, (K, mbH, mbW))
-         | (rng.randint(0, 4, (K, mbH, mbW)) << 4),
-         "ch_modes": rng.randint(0, 4, (K, mbH, mbW))
-         | (rng.randint(0, 4, (K, mbH, mbW)) << 4),
-         "pcm_y": rng.randint(0, 256, (K, H, W)),
-         "pcm_c": rng.randint(0, 256, (K, 2, H // 2, W // 2))}
-    frames = [rng.randint(0, 256, (K, H, W)),
-              rng.randint(0, 256, (K, H // 2, W // 2)),
-              rng.randint(0, 256, (K, H // 2, W // 2)),
-              rng.randint(-40, 40, (K, H, W)),
-              rng.randint(-40, 40, (K, H // 2, W // 2)),
-              rng.randint(-40, 40, (K, H // 2, W // 2))]
-    return p, frames
 
 
 @pytest.mark.parametrize("has_t8,has_pcm", [(True, True), (False, False)])
