@@ -13,7 +13,10 @@ Phases (any failure raises and exits non-zero):
               each kernel against its plain PyTorch version on the card:
               exact equality required; both timed with CUDA events.  Also
               the intra kernel against the level rounds (intra_rounds) on
-              one intra-sparse input, both timed.
+              one intra-sparse input, both timed; the intra and deblock
+              kernels timed at K=8 (bench.py's lanes) and held exact
+              against their plain versions on an odd geometry (K=3, 3x5
+              mbs) and at K=16 (1088 row workers).
   3. decode   the main path: a 1080p (120x68 mb) CABAC IPB stream of 2
               closed GOPs (IDR+P+B) through decode_gops_batched(lanes=2)
               on cuda with sink="frames" and sink="digest", and on the CPU
@@ -25,8 +28,9 @@ Phases (any failure raises and exits non-zero):
               stream, every frame byte-identical to phase 3's CPU frames,
               all four kernels launched.
   5. profile  one more decode of each path under torch.profiler: the
-              device's busy ms and idle share of the wall time, and the
-              device ms of the top kernels.
+              device's busy ms and idle share of the wall time, the
+              device ms of the top kernels, and each kernel's device
+              launches per wrapper call (intra and deblock must be one).
   6. report   per-stage device ms and frames/s of both paths, then the
               `kernels` JSON line, the card's name and power limit, and
               the final JSON line.  Details also go to
@@ -155,25 +159,26 @@ def mc_inputs(dev, seed=7):
             C.reshape((K, S + 1) + C.shape[1:]))
 
 
-def deblock_inputs(dev, seed=11):
-    """tests/test_pallas_deblock.py-style random frames and planes at
-    1080p (no mb edge flags on the frame border)."""
+def deblock_inputs(dev, seed=11, K=K, mbW=MBW, mbH=MBH):
+    """tests/test_pallas_deblock.py-style random frames and planes, 1080p
+    by default (no mb edge flags on the frame border).  Returns (y, cb,
+    cr, planes, bs_v, bs_h)."""
     g = torch.Generator(device=dev).manual_seed(seed)
 
     def ri(lo, hi, shape):
         return torch.randint(lo, hi, shape, generator=g, device=dev,
                              dtype=torch.int32)
 
-    H, W = 16 * MBH, 16 * MBW
-    db = torch.full((K, MBH, MBW), 7, dtype=torch.int32, device=dev)
+    H, W = 16 * mbH, 16 * mbW
+    db = torch.full((K, mbH, mbW), 7, dtype=torch.int32, device=dev)
     db[:, :, 0] &= ~1
     db[:, 0, :] &= ~2
-    p = {"qp": ri(10, 45, (K, MBH, MBW, 4)),
-         "deblock_ab": ri(-2, 3, (K, MBH, MBW, 2)), "deblock": db,
-         "mb_flags": ri(0, 2, (K, MBH, MBW)) * 9}
+    p = {"qp": ri(10, 45, (K, mbH, mbW, 4)),
+         "deblock_ab": ri(-2, 3, (K, mbH, mbW, 2)), "deblock": db,
+         "mb_flags": ri(0, 2, (K, mbH, mbW)) * 9}
     return (ri(0, 255, (K, H, W)), ri(0, 255, (K, H // 2, W // 2)),
             ri(0, 255, (K, H // 2, W // 2)), p,
-            ri(0, 5, (K, 4 * MBH, 4 * MBW)), ri(0, 5, (K, 4 * MBH, 4 * MBW)))
+            ri(0, 5, (K, 4 * mbH, 4 * mbW)), ri(0, 5, (K, 4 * mbH, 4 * mbW)))
 
 
 def intra_inputs(rng, K, mbW, mbH, t8=True, pcm=True, intra_share=1.0):
@@ -208,9 +213,10 @@ def intra_inputs(rng, K, mbW, mbH, t8=True, pcm=True, intra_share=1.0):
     return p, frames
 
 
-def intra_case(dev, seed, intra_share=1.0):
-    """intra_inputs at 1080p, K lanes, as int32 tensors on `dev`."""
-    p, frames = intra_inputs(np.random.RandomState(seed), K, MBW, MBH,
+def intra_case(dev, seed, intra_share=1.0, K=K, mbW=MBW, mbH=MBH):
+    """intra_inputs (1080p, K lanes by default) as int32 tensors on
+    `dev`: (planes, [y, cb, cr, res_y, res_cb, res_cr])."""
+    p, frames = intra_inputs(np.random.RandomState(seed), K, mbW, mbH,
                              intra_share=intra_share)
     return ({k: torch.as_tensor(v, dtype=torch.int32, device=dev)
              for k, v in p.items()},
@@ -334,6 +340,36 @@ def phase_kernels(dev):
     log(f"[kernels] intra-sparse input ({out['intra_sparse']['intra_mbs']} "
         f"intra mbs, rounds{R}): kernel {k_ms:.3f} ms, level rounds "
         f"{r_ms:.3f} ms, equal")
+
+    # K=8, bench.py's lanes: the kernels' times (1080p)
+    y, cb, cr, pd, bs_v, bs_h = deblock_inputs(dev, 12, K=8)
+    it = iter([(y.clone(), cb.clone(), cr.clone()) for _ in range(6)])
+    out["deblock"]["ms_k8"] = cuda_ms(
+        lambda: D.deblock_batch(*next(it), pd, bs_v, bs_h, MBW, MBH), 5)
+    p, frames = intra_case(dev, 14, K=8)
+    it = iter([[f.clone() for f in frames[:3]] + frames[3:]
+               for _ in range(6)])
+    out["intra"]["ms_k8"] = cuda_ms(
+        lambda: I.intra_batch(*next(it), p, MBW, MBH), 5)
+    log(f"[kernels] K=8: deblock {out['deblock']['ms_k8']:.3f} ms, intra "
+        f"{out['intra']['ms_k8']:.3f} ms")
+    del y, cb, cr, pd, bs_v, bs_h, p, frames, it
+
+    # exact on an odd geometry and at K=16 (1088 row workers)
+    for k_, w_, h_ in ((3, 3, 5), (16, MBW, MBH)):
+        y, cb, cr, pd, bs_v, bs_h = deblock_inputs(dev, 15, k_, w_, h_)
+        check_equal(f"deblock K={k_} {w_}x{h_}",
+                    D.deblock_batch(y.clone(), cb.clone(), cr.clone(), pd,
+                                    bs_v, bs_h, w_, h_),
+                    D.deblock_scan(y, cb, cr, pd, bs_v, bs_h, w_, h_))
+        del y, cb, cr, pd, bs_v, bs_h
+        p, frames = intra_case(dev, 16, K=k_, mbW=w_, mbH=h_)
+        check_equal(f"intra K={k_} {w_}x{h_}",
+                    I.intra_batch(*[f.clone() for f in frames[:3]],
+                                  *frames[3:], p, w_, h_),
+                    I.intra_scan_sheared(*frames, p, w_, h_))
+        del p, frames
+        log(f"[kernels] deblock and intra exact at K={k_}, {w_}x{h_} mbs")
     return out
 
 
@@ -505,12 +541,19 @@ def busy_us(events):
     return total
 
 
+# each kernel's device function, as the trace names it
+SYMBOLS = {"intra": "intra_rows", "deblock": "deblock_rows",
+           "mc_luma": "mc_luma", "mc_chroma": "mc_chroma"}
+
+
 def profiled(run):
     """One traced decode (the path already warm): wall ms with the device
     synchronized at both ends, device busy ms (the union of the kernel
-    and copy intervals), the idle share 1 - busy / wall, and the device
-    ms of the top kernels by name."""
+    and copy intervals), the idle share 1 - busy / wall, the device ms of
+    the top kernels by name, and each kernel's device launches per
+    wrapper call."""
     torch.cuda.synchronize()
+    reset_counts()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -525,10 +568,16 @@ def profiled(run):
     for e in dev:
         by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:PROFILE_TOP]
+    calls = read_counts()
+    per_call = {}
+    for k, sym in SYMBOLS.items():
+        if calls[k]:
+            per_call[k] = sum(1 for e in dev if sym in e.name) / calls[k]
     return {"frames": n, "wall_ms": wall * 1e3, "device_busy_ms": busy,
             "idle_share": 1 - busy / (wall * 1e3),
             "device_events": len(dev),
-            "top_kernels_ms": [(k[:80], v / 1e3) for k, v in top]}
+            "top_kernels_ms": [(k[:80], v / 1e3) for k, v in top],
+            "calls": calls, "device_launches_per_call": per_call}
 
 
 def phase_profile(data):
@@ -538,10 +587,16 @@ def phase_profile(data):
                                                                 lanes=2)),
             ("decode_annexb", lambda: decode_annexb(data))):
         res[name] = r = profiled(run)
+        for k in ("intra", "deblock"):
+            if r["device_launches_per_call"].get(k) != 1:
+                raise AssertionError(
+                    f"{name}: {k} is not one device launch a call: "
+                    f"{r['device_launches_per_call']}")
         log(f"[profile] {name}: device {100 * r['idle_share']:.1f}% idle "
             f"({r['device_busy_ms']:.1f} ms busy of {r['wall_ms']:.1f} ms "
             f"wall); top: " + ", ".join(f"{k[:40]} {v:.1f} ms"
-                                        for k, v in r["top_kernels_ms"][:3]))
+                                        for k, v in r["top_kernels_ms"][:3])
+            + f"; device launches a call {r['device_launches_per_call']}")
     return res
 
 
@@ -593,7 +648,11 @@ def main():
                      "bound_ms": max(t_bytes, t_ops),
                      "bound_by": "bytes" if t_bytes >= t_ops
                      else "operations",
-                     "library_ms": None})
+                     "library_ms": None,
+                     "device_launches_per_call": report["profile"][
+                         "decode_annexb"]["device_launches_per_call"][name]})
+        if "ms_k8" in k:
+            rows[-1]["ms_k8"] = k["ms_k8"]
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
         json.dump(dict(report, rows=rows), f, indent=1, default=str)

@@ -28,8 +28,8 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _P, _I = C.c_void_p, C.c_int
 # library -> {entry: argtypes}; every entry returns int (cudaError_t)
 ENTRIES = {
-    "deblock": {"e264t_deblock": [_P] * 9 + [_I, _I, _I, _P]},
-    "intra": {"e264t_intra": [_P] * 14 + [_I] * 5 + [_P]},
+    "deblock": {"e264t_deblock": [_P] * 10 + [_I, _I, _I, _P]},
+    "intra": {"e264t_intra": [_P] * 15 + [_I] * 5 + [_P]},
     "mc": {"e264t_mc_luma": [_P] * 5 + [_I] * 7 + [_P],
            "e264t_mc_chroma": [_P] * 5 + [_I] * 7 + [_P]},
 }
@@ -54,9 +54,12 @@ def _lib_path(name: str) -> str:
 
 
 def _stale(name: str) -> bool:
-    out, src = _lib_path(name), os.path.join(_CSRC, f"{name}.cu")
+    """The library is missing or older than its source or any header."""
+    out = _lib_path(name)
+    srcs = [os.path.join(_CSRC, f) for f in os.listdir(_CSRC)
+            if f == f"{name}.cu" or f.endswith(".cuh")]
     return not os.path.exists(out) or \
-        os.path.getmtime(src) > os.path.getmtime(out)
+        max(map(os.path.getmtime, srcs)) > os.path.getmtime(out)
 
 
 def build_all(names=tuple(ENTRIES), force: bool = False) -> dict:

@@ -1,6 +1,6 @@
 """Lockstep-batched pixel path: K independent frames (from K concurrent
 GOPs) run every stage together, so each stage is one batched call (and
-each wavefront kernel one launch per wave) for all K.
+each kernel one launch) for all K.
 
 Port of `ops/batched.py`'s `decode_batch_step` (the `_main_impl` stage
 order), the reference rings (`alloc_ref_rings`, `grow_ref_rings`) and

@@ -293,10 +293,14 @@ def deblock_batch(y, cb, cr, p, bs_v, bs_h, mbW, mbH):
             (p["mb_flags"], (K, mbH, mbW)), (bs_v, (K, 4 * mbH, 4 * mbW)),
             (bs_h, (K, 4 * mbH, 4 * mbW))]
     build.check_args(args, torch.int32, y.device)
-    stream = torch.cuda.current_stream(y.device).cuda_stream
-    rc = build.lib("deblock").e264t_deblock(
-        *[ctypes.c_void_p(t.data_ptr()) for t, _ in args],
-        K, mbW, mbH, ctypes.c_void_p(stream))
+    # progress[K*mbH] row counters, then the row ticket: zeroed per call
+    scratch = torch.zeros(K * mbH + 1, dtype=torch.int32, device=y.device)
+    with torch.cuda.device(y.device):
+        stream = torch.cuda.current_stream(y.device).cuda_stream
+        rc = build.lib("deblock").e264t_deblock(
+            *[ctypes.c_void_p(t.data_ptr()) for t, _ in args],
+            ctypes.c_void_p(scratch.data_ptr()), K, mbW, mbH,
+            ctypes.c_void_p(stream))
     build.raise_on(rc, "deblock")
     deblock_batch.launches += 1
     return y, cb, cr

@@ -388,9 +388,10 @@ def _launch(entry, flg, pk, band, n_lists, out_shape, dims):
     ptr = [ctypes.c_void_p(t.data_ptr()) for t in (flg, pk, band, *outs)]
     if n_lists == 1:
         ptr.append(ctypes.c_void_p(None))
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    rc = getattr(build.lib("mc"), entry)(*ptr, *dims, n_lists,
-                                         ctypes.c_void_p(stream))
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = getattr(build.lib("mc"), entry)(*ptr, *dims, n_lists,
+                                             ctypes.c_void_p(stream))
     build.raise_on(rc, entry)
     return outs
 

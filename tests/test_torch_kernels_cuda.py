@@ -12,7 +12,8 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-from chip_smoke import intra_inputs  # noqa: E402
+from chip_smoke import deblock_inputs, intra_case, \
+    intra_inputs  # noqa: E402
 from edge264_tpu_torch import streams  # noqa: E402
 from edge264_tpu_torch.api import decode_annexb  # noqa: E402
 from edge264_tpu_torch.convert import planes_to_torch  # noqa: E402
@@ -32,37 +33,39 @@ def dev():
     return torch.device("cuda")
 
 
-def test_deblock_kernel_matches_plain(dev):
-    g = torch.Generator(device=dev).manual_seed(3)
-    K, mbW, mbH = 2, 120, 6
+def _deblock_pair(dev, seed, K, mbW, mbH):
+    """(plain result, kernel result) on one random deblock input."""
+    y, cb, cr, p, bs_v, bs_h = deblock_inputs(dev, seed, K, mbW, mbH)
+    want = D.deblock_scan(y, cb, cr, p, bs_v, bs_h, mbW, mbH)
+    got = D.deblock_batch(y.clone(), cb.clone(), cr.clone(), p, bs_v, bs_h,
+                          mbW, mbH)
+    return want, got
 
-    def ri(lo, hi, shape):
-        return torch.randint(lo, hi, shape, generator=g, device=dev,
-                             dtype=torch.int32)
 
-    H, W = 16 * mbH, 16 * mbW
-    db = torch.full((K, mbH, mbW), 7, dtype=torch.int32, device=dev)
-    db[:, :, 0] &= ~1
-    db[:, 0, :] &= ~2
-    p = {"qp": ri(10, 45, (K, mbH, mbW, 4)),
-         "deblock_ab": ri(-2, 3, (K, mbH, mbW, 2)), "deblock": db,
-         "mb_flags": ri(0, 2, (K, mbH, mbW)) * 9}
-    frames = (ri(0, 255, (K, H, W)), ri(0, 255, (K, H // 2, W // 2)),
-              ri(0, 255, (K, H // 2, W // 2)))
-    bs = (ri(0, 5, (K, 4 * mbH, 4 * mbW)), ri(0, 5, (K, 4 * mbH, 4 * mbW)))
-    want = D.deblock_scan(*frames, p, *bs, mbW, mbH)
-    n = D.deblock_batch.launches
-    got = D.deblock_batch(*[f.clone() for f in frames], p, *bs, mbW, mbH)
+def _intra_pair(dev, seed, K, mbW, mbH, intra_share=1.0):
+    p, frames = intra_case(dev, seed, intra_share, K, mbW, mbH)
+    want = I.intra_scan_sheared(*frames, p, mbW, mbH)
+    got = I.intra_batch(*[f.clone() for f in frames[:3]], *frames[3:], p,
+                        mbW, mbH)
+    return want, got
+
+
+def _assert_equal(want, got):
     torch.cuda.synchronize()
-    assert D.deblock_batch.launches == n + 1
     for a, b in zip(want, got):
         assert torch.equal(a, b)
 
 
-@pytest.mark.parametrize("has_b", [True, False])
-def test_mc_kernels_match_plain(dev, has_b):
-    rng = np.random.RandomState(5)
-    K, S, mbW, mbH = 2, 3, 120, 4
+def test_deblock_kernel_matches_plain(dev):
+    n = D.deblock_batch.launches
+    _assert_equal(*_deblock_pair(dev, 3, 2, 120, 6))
+    assert D.deblock_batch.launches == n + 1
+
+
+def _mc_cases(dev, rng, K, S, mbW, mbH, has_b):
+    """(kernel, plain, args) for mc_luma and mc_chroma on one random input:
+    per-8x8 mvs up to +-300 quarter-pels past every edge, some 16x8 pairs
+    and split cells, unused cells."""
     BH, BW = 4 * mbH, 4 * mbW
     planes = []
     for _ in range(K):
@@ -94,15 +97,19 @@ def test_mc_kernels_match_plain(dev, has_b):
     f3 = flg.reshape(K, BR, BC)
     band = L.reshape(K, -1, L.shape[-2], L.shape[-1])
     bandC = C.reshape((K, S + 1) + C.shape[1:])
-    for kern, plain, pk, bd in ((M.mc_luma, M.mc_luma_plain, pkl, band),
-                                (M.mc_chroma, M.mc_chroma_plain, pkc,
-                                 bandC)):
-        args = (f3, pk.reshape(K, BR, BC * 16), bd, n)
+    return [(kern, plain, (f3, pk.reshape(K, BR, BC * 16), bd, n))
+            for kern, plain, pk, bd in (
+                (M.mc_luma, M.mc_luma_plain, pkl, band),
+                (M.mc_chroma, M.mc_chroma_plain, pkc, bandC))]
+
+
+@pytest.mark.parametrize("has_b", [True, False])
+def test_mc_kernels_match_plain(dev, has_b):
+    for kern, plain, args in _mc_cases(dev, np.random.RandomState(5), 2, 3,
+                                       120, 4, has_b):
         got, want = kern(*args), plain(*args)
-        torch.cuda.synchronize()
-        assert len(got) == len(want) == n
-        for a, b in zip(got, want):
-            assert torch.equal(a, b)
+        assert len(got) == len(want) == args[-1]
+        _assert_equal(want, got)
 
 
 @pytest.mark.parametrize("has_t8,has_pcm", [(True, True), (False, False)])
@@ -153,3 +160,88 @@ def test_decode_annexb_on_card_matches_cpu(dev):
     assert (I.intra_batch.launches - n[0], D.deblock_batch.launches - n[1],
             M.mc_luma.launches - n[2], M.mc_chroma.launches - n[3]) == \
         (5, 5, 4, 4)
+
+
+# ---------------------------------------------------------------------------
+# The row-synchronised launches: odd geometries, more rows than fit on the
+# card at once, back-to-back calls, sparse intra, a second card.
+
+# (K, mbW, mbH): one mb, one column, one row, odd sizes, 4K in one lane
+GEOMETRIES = [(1, 1, 1), (2, 1, 4), (2, 4, 1), (2, 3, 5), (3, 5, 3),
+              (1, 240, 135)]
+
+
+@pytest.mark.parametrize("K,mbW,mbH", GEOMETRIES)
+def test_deblock_kernel_geometries(dev, K, mbW, mbH):
+    _assert_equal(*_deblock_pair(dev, 20 + mbW, K, mbW, mbH))
+
+
+@pytest.mark.parametrize("K,mbW,mbH", GEOMETRIES)
+def test_intra_kernel_geometries(dev, K, mbW, mbH):
+    _assert_equal(*_intra_pair(dev, 30 + mbW, K, mbW, mbH))
+
+
+@pytest.mark.parametrize("K", [16, 24])
+@pytest.mark.parametrize("kernel", ["deblock", "intra"])
+def test_kernel_more_rows_than_resident(dev, kernel, K):
+    """1080p at K=16 (1088 rows) and K=24 (1632 rows, more than an H100
+    holds at once for either kernel: its shared memory caps intra at 11
+    blocks an SM): blocks take further tickets after their first row, and
+    the ticket order must let every worker finish."""
+    pair = _deblock_pair if kernel == "deblock" else _intra_pair
+    _assert_equal(*pair(dev, 5, K, 120, 68))
+
+
+@pytest.mark.parametrize("kernel", ["deblock", "intra"])
+def test_kernel_back_to_back(dev, kernel):
+    """20 calls with fresh inputs, launched without a sync between them:
+    a stale progress counter or a memory-ordering race would show as a
+    mismatch (repetition is the check; no race detector runs here)."""
+    K, mbW, mbH = 2, 20, 8
+    wants, calls = [], []
+    for seed in range(20):
+        if kernel == "deblock":
+            y, cb, cr, p, bs_v, bs_h = deblock_inputs(dev, 100 + seed, K,
+                                                      mbW, mbH)
+            wants.append(D.deblock_scan(y, cb, cr, p, bs_v, bs_h, mbW, mbH))
+            calls.append(((y.clone(), cb.clone(), cr.clone(), p, bs_v,
+                           bs_h, mbW, mbH), D.deblock_batch))
+        else:
+            p, frames = intra_case(dev, 100 + seed, 1.0, K, mbW, mbH)
+            wants.append(I.intra_scan_sheared(*frames, p, mbW, mbH))
+            calls.append(((*[f.clone() for f in frames[:3]], *frames[3:],
+                           p, mbW, mbH), I.intra_batch))
+    torch.cuda.synchronize()
+    gots = [fn(*args) for args, fn in calls]
+    for want, got in zip(wants, gots):
+        _assert_equal(want, got)
+
+
+def test_intra_kernel_sparse(dev):
+    """5% intra mbs at 1080p: the inter mbs are published without a wait;
+    the kernel equals the sheared scan and the level rounds."""
+    p, frames = intra_case(dev, 17, 0.05, 2, 120, 68)
+    tabs = [I.intra_round_plane(f, 120, 68)
+            for f in p["mb_flags"].cpu().numpy()]
+    assert all(t is not None for t in tabs)
+    R = max(t[1] for t in tabs)
+    rounds = I.intra_rounds(*frames, p, None, 120, 68, R)
+    want = I.intra_scan_sheared(*frames, p, 120, 68)
+    got = I.intra_batch(*[f.clone() for f in frames[:3]], *frames[3:], p,
+                        120, 68)
+    _assert_equal(want, got)
+    _assert_equal(rounds, got)
+
+
+def test_kernels_launch_on_their_tensors_device(dev):
+    """Frames on cuda:1 while cuda:0 is current: every wrapper launches on
+    its tensors' card."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices")
+    d1 = torch.device("cuda:1")
+    assert torch.cuda.current_device() == 0
+    _assert_equal(*_deblock_pair(d1, 3, 2, 7, 5))
+    _assert_equal(*_intra_pair(d1, 3, 2, 7, 5))
+    for kern, plain, args in _mc_cases(d1, np.random.RandomState(9), 2, 2,
+                                       6, 4, True):
+        _assert_equal(plain(*args), kern(*args))
