@@ -26,7 +26,9 @@ Phases (any failure raises and exits non-zero):
               the level rounds on intra-sparse P/B steps) used.
   4. single   the single-frame path: decode_annexb on cuda over the same
               stream, every frame byte-identical to phase 3's CPU frames,
-              all four kernels launched.
+              all four kernels launched; then both paths on a 5x3-mb
+              stream (an mb count that is no multiple of 4), byte-identical
+              to the CPU.
   5. profile  one more decode of each path under torch.profiler: the
               device's busy ms and idle share of the wall time, the
               device ms of the top kernels, and each kernel's device
@@ -521,6 +523,25 @@ def phase_single(data, ref):
     res["frames"] = len(frames)
     log(f"[single] {len(frames)} frames of decode_annexb on cuda "
         f"byte-identical to the cpu reference; launches {res['launches']}")
+
+    # 5x3 mbs: K * 15 is no multiple of 4, yet every plane of the shared
+    # upload buffer must start 16-byte aligned for the kernels' cp.async
+    small = streams.avcgen().gen_random_cabac_ipb_stream(
+        5, 3, n_gops=1, seed=3, closed=True, gop_pb=1, density=0.1,
+        max_level=4, intra_prob=0.1)
+    for name, run in (("decode_annexb", decode_annexb),
+                      ("lockstep", lambda d, **kw: decode_gops_batched(
+                          d, lanes=2, **kw))):
+        want, got = list(run(small, device="cpu")), list(run(small))
+        if len(got) != len(want) or len(want) != 3:
+            raise AssertionError(f"5x3 {name}: {len(got)} frames, want 3")
+        for i, (a, b) in enumerate(zip(want, got)):
+            for c in ("y", "cb", "cr"):
+                if not np.array_equal(getattr(a, c), getattr(b, c)):
+                    raise AssertionError(f"5x3 {name} frame {i} {c}: "
+                                         f"cuda != cpu")
+    log("[single] 5x3-mb stream: decode_annexb and lockstep (lanes=2) on "
+        "cuda byte-identical to the cpu")
     return res
 
 

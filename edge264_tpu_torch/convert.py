@@ -17,6 +17,10 @@ PLANE_KEYS = ["mb_flags", "qp", "i4_modes", "i16_modes", "i8_modes",
               "coef_cb", "coef_cr", "pcm_y", "pcm_c", "nz_y", "refslot",
               "mvs", "deblock", "deblock_ab", "wp", "wp8", "mb_errors",
               "slice_id"]
+# every plane starts at a multiple of this many int32s (16 bytes): the
+# kernels fetch planes with 16-byte cp.async copies, which need the
+# address aligned to the copy size
+ALIGN = 4
 # planes that go to the device only once some frame of the stream needs
 # them (the lockstep driver's sticky `keep` set); otherwise zeros, exactly
 # as the JAX arena ships them
@@ -50,7 +54,7 @@ def planes_to_torch(planes_list, keep, device, extra=None):
     offs, total = {}, 0
     for k, shp in shapes.items():
         offs[k] = total
-        total += K * int(np.prod(shp))
+        total += -(-K * int(np.prod(shp)) // ALIGN) * ALIGN
     buf = np.zeros(total, np.int32)
 
     def block(k):

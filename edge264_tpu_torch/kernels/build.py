@@ -110,7 +110,9 @@ def lib(name: str) -> C.CDLL:
 
 def check_args(args, dtype, device):
     """Raise unless every (tensor, shape) pair is a contiguous `dtype`
-    tensor of that shape on `device`, a CUDA device."""
+    tensor of that shape on `device`, a CUDA device, starting on a 16-byte
+    boundary (the kernels' cp.async and int4 loads need it; a view into a
+    larger buffer may not)."""
     if device.type != "cuda":
         raise ValueError(f"kernels run on CUDA tensors, not {device}")
     for i, (t, shape) in enumerate(args):
@@ -122,6 +124,9 @@ def check_args(args, dtype, device):
                              f"{tuple(shape)}")
         if not t.is_contiguous():
             raise ValueError(f"arg {i}: not contiguous")
+        if t.data_ptr() % 16:
+            raise ValueError(f"arg {i}: address {t.data_ptr():#x} not "
+                             "16-byte aligned")
 
 
 def raise_on(rc: int, what: str):

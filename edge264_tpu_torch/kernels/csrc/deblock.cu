@@ -432,7 +432,7 @@ __global__ void __launch_bounds__(wf::THREADS) deblock_rows(
 // qp [K,mbH,mbW,4], deblock [K,mbH,mbW], deblock_ab [K,mbH,mbW,2],
 // mb_flags [K,mbH,mbW], bs_v/bs_h [K,4mbH,4mbW], all int32; scratch int32
 // [K*mbH + 1], zero: the rows' progress counters, then the row ticket.
-// One launch.
+// Every pointer 16-byte aligned (cp.async of 16 bytes).  One launch.
 extern "C" int e264t_deblock(void* y, void* cb, void* cr, void* qp,
                              void* dbfl, void* ab, void* flags, void* bs_v,
                              void* bs_h, void* scratch, int K, int mbW,

@@ -60,7 +60,7 @@ namespace {
 constexpr int MBF_INTRA = 1, MBF_I16x16 = 2, MBF_IPCM = 4, MBF_T8x8 = 8;
 enum { L_NONE, L_I4, L_I8, L_I16, L_PCM };
 enum { C_NONE, C_PRED, C_PCM };
-constexpr int MAX_MBW = 512;  // ops/intra.MAX_MBW
+constexpr int MAX_MBW = 512;  // the per-row work mask's bits
 constexpr int MASK_WORDS = MAX_MBW / 32;
 
 __constant__ uint8_t c_i4[9][16][3];
@@ -532,7 +532,9 @@ int upload_tables(const uint8_t* tabs) {
 // 16mbW], pcm_c [K,2,8mbH,8mbW], all int32; tabs the host tap tables
 // (4155 bytes, see upload_tables); scratch int32 [K*mbH + 1], zero: the
 // rows' progress counters, then the row ticket.  has_t8 / has_pcm = 0
-// skip the Intra_8x8 and PCM work as the plain version does.  One launch.
+// skip the Intra_8x8 and PCM work as the plain version does.  Every frame
+// and plane pointer 16-byte aligned (cp.async of 16 bytes).  One launch.
+// Rows wider than MAX_MBW mbs return cudaErrorInvalidValue, unlaunched.
 extern "C" int e264t_intra(void* y, void* cb, void* cr, void* res_y,
                            void* res_cb, void* res_cr, void* i4m, void* i8m,
                            void* i16m, void* chm, void* flags, void* pcm_y,

@@ -552,7 +552,6 @@ intra_rounds.launches = 0
 _TAP_TABLES = np.concatenate([
     a.astype(np.uint8).ravel()
     for a in (I4_IDX, I8_IDX, I16_DIR_IDX, CH_DIR_IDX, I8_FILT_IDX)])
-MAX_MBW = 512            # intra.cu's per-row work mask (MAX_MBW bits)
 
 
 def intra_batch(y, cb, cr, res_y, res_cb, res_cr, p, mbW, mbH,
@@ -577,8 +576,6 @@ def intra_batch(y, cb, cr, res_y, res_cb, res_cr, p, mbW, mbH,
             (p["mb_flags"], (K, mbH, mbW)), (p["pcm_y"], luma),
             (p["pcm_c"], (K, 2, H // 2, W // 2))]
     build.check_args(args, torch.int32, y.device)
-    if mbW > MAX_MBW:
-        raise ValueError(f"intra kernel: {mbW} mbs a row, at most {MAX_MBW}")
     # progress[K*mbH] row counters, then the row ticket: zeroed per call
     scratch = torch.zeros(K * mbH + 1, dtype=torch.int32, device=y.device)
     with torch.cuda.device(y.device):

@@ -162,6 +162,41 @@ def test_decode_annexb_on_card_matches_cpu(dev):
         (5, 5, 4, 4)
 
 
+@pytest.mark.parametrize("mbW,mbH", [(5, 3), (11, 9)])
+def test_decode_paths_on_card_odd_mb_count(dev, mbW, mbH):
+    """15 and 99 mbs, not a multiple of 4: the syntax planes share one
+    device buffer, and each must still start 16-byte aligned for the
+    kernels' cp.async.  decode_annexb (K=1) and the lockstep path (lanes=2)
+    are byte-identical to the CPU path."""
+    data = b"".join(streams.avcgen().gen_random_cabac_ipb_stream(
+        mbW, mbH, n_gops=1, seed=s, closed=True, gop_pb=1, density=0.1,
+        max_level=4, intra_prob=0.1) for s in (0, 1))
+    for run in (decode_annexb,
+                lambda d, **kw: decode_gops_batched(d, lanes=2, **kw)):
+        want = list(run(data, device="cpu"))
+        got = list(run(data))
+        assert len(got) == len(want) == 6
+        for a, b in zip(want, got):
+            for c in ("y", "cb", "cr"):
+                assert np.array_equal(getattr(a, c), getattr(b, c))
+
+
+def test_kernel_wrappers_reject_misaligned_planes(dev):
+    """A plane that starts off a 16-byte boundary raises before launch."""
+    y, cb, cr, p, bs_v, bs_h = deblock_inputs(dev, 3, 1, 3, 5)
+    buf = torch.zeros(p["qp"].numel() + 1, dtype=torch.int32, device=dev)
+    qp = buf[1:].view(p["qp"].shape)
+    n = D.deblock_batch.launches
+    with pytest.raises(ValueError, match="16-byte"):
+        D.deblock_batch(y, cb, cr, dict(p, qp=qp), bs_v, bs_h, 3, 5)
+    pi, frames = intra_case(dev, 3, 1.0, 1, 3, 5)
+    ry = torch.zeros(frames[3].numel() + 1, dtype=torch.int32, device=dev)
+    frames[3] = ry[1:].view(frames[3].shape)
+    with pytest.raises(ValueError, match="16-byte"):
+        I.intra_batch(*frames, pi, 3, 5)
+    assert D.deblock_batch.launches == n
+
+
 # ---------------------------------------------------------------------------
 # The row-synchronised launches: odd geometries, more rows than fit on the
 # card at once, back-to-back calls, sparse intra, a second card.
