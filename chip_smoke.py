@@ -11,12 +11,17 @@ Phases (any failure raises and exits non-zero):
               motion vectors overshooting every edge, unused cells; random
               intra planes with every mb kind, availability bit and mode)
               each kernel against its plain PyTorch version on the card:
-              exact equality required; both timed with CUDA events.  Also
-              the intra kernel against the level rounds (intra_rounds) on
-              one intra-sparse input, both timed; the intra and deblock
-              kernels timed at K=8 (bench.py's lanes) and held exact
-              against their plain versions on an odd geometry (K=3, 3x5
-              mbs) and at K=16 (1088 row workers).
+              exact equality required; both timed with CUDA events around
+              the call, and the kernel also by its own device time from
+              torch.profiler's events (device_ms: no host work inside).
+              Every kernel timed so at K=8 too (bench.py's lanes); the MC
+              kernels held exact at K=8, on K=3 5x3 mbs, on mvs driven to
+              every clamp and with one list, and their ring reads counted
+              in 32-byte sectors (the sector floor).  Also the intra kernel
+              against the level rounds (intra_rounds) on one intra-sparse
+              input, both timed; the intra and deblock kernels held exact
+              on an odd geometry (K=3, 3x5 mbs) and at K=16 (1088 row
+              workers).
   3. decode   the main path: a 1080p (120x68 mb) CABAC IPB stream of 2
               closed GOPs (IDR+P+B) through decode_gops_batched(lanes=2)
               on cuda with sink="frames" and sink="digest", and on the CPU
@@ -32,7 +37,7 @@ Phases (any failure raises and exits non-zero):
   5. profile  one more decode of each path under torch.profiler: the
               device's busy ms and idle share of the wall time, the
               device ms of the top kernels, and each kernel's device
-              launches per wrapper call (intra and deblock must be one).
+              launches per wrapper call (each must be one).
   6. report   per-stage device ms and frames/s of both paths, then the
               `kernels` JSON line, the card's name and power limit, and
               the final JSON line.  Details also go to
@@ -121,44 +126,138 @@ def phase_build():
 # ---------------------------------------------------------------------------
 # phase 2: each kernel against its plain version at 1080p shapes
 
-def mc_inputs(dev, seed=7):
-    """_mk-style planes at 1080p: per-8x8 uniform mvs (some split cells,
-    some 16x8 pairs), unused cells, mvs up to +-300 quarter-pels past
-    every edge; rings from random frames."""
-    rng = np.random.RandomState(seed)
-    BH, BW = 4 * MBH, 4 * MBW
+# (share of 16x8 pairs, share of split 8x8 blocks) for each forced arm
+MC_ARMS = {None: (0.3, 0.3), "uniform": (0.0, 0.0), "pair": (1.0, 0.0),
+           "quad": (0.0, 1.0), "unused": (0.3, 0.3)}
+
+
+def mc_planes(rng, K, S, mbW, mbH, mvmax=300, arm=None):
+    """_mk-style refslot / mvs planes (tests/test_torch_mc.py) for K
+    lanes: per-8x8 uniform mvs up to +-mvmax quarter-pels (300 overshoots
+    every edge, 2000 drives every arm to its clamps), 10% unused 8x8
+    blocks, and with arm=None some 16x8 pairs and split blocks.  `arm`
+    forces one kernel arm on every block: "uniform" (8x8), "pair" (16x8),
+    "quad" (per 4x4 cell, with unused cells too) or "unused" (no list
+    used)."""
+    pair_p, sub_p = MC_ARMS[arm]
+    BH, BW = 4 * mbH, 4 * mbW
     planes = []
     for _ in range(K):
-        mv8 = rng.randint(-300, 301, (BH // 2, BW // 2, 2, 2))
+        mv8 = rng.randint(-mvmax, mvmax + 1, (BH // 2, BW // 2, 2, 2))
         rs8 = rng.randint(0, S, (BH // 2, BW // 2, 2))
         rs8 = np.where(rng.rand(BH // 2, BW // 2, 2) < 0.1, -1, rs8)
-        pair = np.repeat(rng.rand(BH // 2, BW // 4) < 0.3, 2, 1)
+        if arm == "unused":
+            rs8[:] = -1
+        pair = np.repeat(rng.rand(BH // 2, BW // 4) < pair_p, 2, 1)
         mv8 = np.where(pair[..., None, None], np.repeat(mv8[:, ::2], 2, 1),
                        mv8)
         rs8 = np.where(pair[..., None], np.repeat(rs8[:, ::2], 2, 1), rs8)
         mvs = np.repeat(np.repeat(mv8, 2, 0), 2, 1)
-        sub = np.repeat(np.repeat(rng.rand(BH // 2, BW // 2) < 0.3, 2, 0),
+        sub = np.repeat(np.repeat(rng.rand(BH // 2, BW // 2) < sub_p, 2, 0),
                         2, 1)
         mvs = np.where(sub[..., None, None],
-                       rng.randint(-300, 301, (BH, BW, 2, 2)), mvs)
-        planes.append({"refslot": np.repeat(np.repeat(rs8, 2, 0), 2, 1),
-                       "mvs": mvs,
-                       "mb_flags": np.full((MBH, MBW), 64 | 32),
-                       "wp": np.zeros((MBH, MBW, 24)),
-                       "wp8": np.zeros((2 * MBH, 2 * MBW, 2, 3, 2))})
-    p = planes_to_torch(planes, {"wp", "wp8"}, dev)
+                       rng.randint(-mvmax, mvmax + 1, (BH, BW, 2, 2)), mvs)
+        rs = np.repeat(np.repeat(rs8, 2, 0), 2, 1)
+        if arm == "quad":
+            rs = np.where(rng.rand(BH, BW, 2) < 0.1, -1, rs)
+        planes.append({"refslot": rs, "mvs": mvs})
+    return planes
+
+
+def mc_inputs(dev, seed=7, K=K, mbW=MBW, mbH=MBH, S=S, has_b=True, **kw):
+    """One MC kernel input on `dev` (1080p, K=2 lanes, S=8 ring slots by
+    default): mc_planes(**kw) packed by pack_mc_params, rings made by
+    make_ref_planes from random frames.  Returns {name: args} for
+    mc_luma and mc_chroma, args = (flags [K,BR,BC], load words
+    [K,BR,BC*16], ring band, n_lists), the arguments of the wrapper and
+    of its plain version."""
+    planes = mc_planes(np.random.RandomState(seed), K, S, mbW, mbH, **kw)
+    p = planes_to_torch(planes, set(), dev)
     smap = np.zeros((K, 32), np.int32)
     smap[:, :S] = np.arange(S)
+    flg, pkl, pkc = M.pack_mc_params(p, torch.as_tensor(smap, device=dev),
+                                     has_b, mbW, mbH)
     g = torch.Generator(device=dev).manual_seed(seed)
-    H, W = 16 * MBH, 16 * MBW
+    H, W = 16 * mbH, 16 * mbW
     y = torch.randint(0, 256, (K * (S + 1), H, W), generator=g, device=dev,
                       dtype=torch.uint8)
     c = torch.randint(0, 256, (2, K * (S + 1), H // 2, W // 2), generator=g,
                       device=dev, dtype=torch.uint8)
     L, C = M.make_ref_planes(y, c[0], c[1])
-    return (p, torch.as_tensor(smap, device=dev),
-            L.reshape((K, S + 1) + L.shape[1:]),
-            C.reshape((K, S + 1) + C.shape[1:]))
+    BR, BC = flg.shape[1], flg.shape[3]
+    f3, n = flg.reshape(K, BR, BC), 2 if has_b else 1
+    return {"mc_luma": (f3, pkl.reshape(K, BR, BC * 16),
+                        L.reshape((K, -1) + L.shape[-2:]), n),
+            "mc_chroma": (f3, pkc.reshape(K, BR, BC * 16),
+                          C.reshape((K, S + 1) + C.shape[1:]), n)}
+
+
+MC_PLAIN = {"mc_luma": M.mc_luma_plain, "mc_chroma": M.mc_chroma_plain}
+# per arm of each MC kernel: (flag bits that select it, quadrant words
+# used, ring rows and bytes a row read from each load word)
+MC_SPANS = {"mc_luma": ((M._F_PAIR, 1, 8, 16), (M._F_UNIFORM, 1, 8, 8),
+                        (0, 4, 4, 4)),
+            "mc_chroma": ((M._F_UNIFORM, 1, 5, 10), (0, 4, 3, 6))}
+
+
+def mc_sectors(name, flg, pk, band, n_lists):
+    """Distinct 32-byte sectors of the ring that one call's used outputs
+    read: per used load word its arm's rows and bytes (chroma's +1 row and
+    +2 column bilinear neighbours included; luma reads two planes, chroma
+    one).  The sector floor of a gather from random offsets."""
+    K, BR, BC = flg.shape
+    _, n_pl, rows_pl, pitch = band.shape
+    words = pk.reshape(K, BR, BC, 2, 4, 2).long()[:, :, :, :n_lists]
+    f = flg.long()
+    lane = torch.arange(K, device=flg.device)[:, None, None, None, None]
+    planes = (0, 1) if name == "mc_luma" else (0,)
+    taken = torch.zeros_like(f, dtype=torch.bool)
+    if name == "mc_luma":
+        taken |= (f & M._F_PAIRODD) != 0    # read by the even block's words
+    ids = []
+    for bits, nq, rows, width in MC_SPANS[name]:
+        arm = ~taken & ((f & bits) != 0 if bits else True)
+        taken |= arm
+        for l in range(n_lists):
+            used = arm & (((f >> l) & 1) == 1)
+            for j in planes:
+                w = words[:, :, :, l, :nq, j][..., None]     # [K,BR,BC,q,1]
+                ok = used[..., None, None] & (words[:, :, :, l, :nq, 0] >= 0
+                                              )[..., None]
+                r = torch.arange(rows, device=flg.device)
+                start = (((lane * n_pl + (w >> 24)) * rows_pl
+                          + ((w >> 12) & 0xFFF) + r) * pitch + (w & 0xFFF))
+                for s in (start, start + width - 1):
+                    ids.append((s >> 5)[ok.expand_as(s)])
+    return int(torch.unique(torch.cat(ids)).numel())
+
+
+def device_ms(name, fn, reps):
+    """Mean device ms of one launch of kernel `name`: fn() run `reps`
+    times under torch.profiler (after one warm-up call), the summed
+    durations of the trace's events of the kernel's device function
+    (SYMBOLS) over their number.  The trace can lack some of a run's
+    kernel events, so dividing by the launches would read low; a shortfall
+    is logged.  No host work is inside the number, unlike cuda_ms around a
+    wrapper call."""
+    fn()
+    torch.cuda.synchronize()
+    n0 = COUNTED[name].launches
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    launches = COUNTED[name].launches - n0
+    ev = [e for e in prof.events()
+          if e.device_type == DeviceType.CUDA and SYMBOLS[name] in e.name]
+    if launches != reps or not 0 < len(ev) <= reps:
+        raise RuntimeError(f"{name}: {len(ev)} device events for {launches} "
+                           f"launches of {reps} calls in the trace")
+    if len(ev) < reps:
+        log(f"[kernels] {name}: the trace holds {len(ev)} of {reps} device "
+            f"events; device_ms is their mean")
+    return sum(e.time_range.elapsed_us() for e in ev) / 1e3 / len(ev)
 
 
 def deblock_inputs(dev, seed=11, K=K, mbW=MBW, mbH=MBH):
@@ -241,35 +340,61 @@ def check_equal(name, got, want):
 
 def phase_kernels(dev):
     out = {}
-    p, smap, refL, refC = mc_inputs(dev)
-    flg, pkl, pkc = M.pack_mc_params(p, smap, True, MBW, MBH)
-    BR, BC = flg.shape[1], flg.shape[3]
-    f3 = flg.reshape(K, BR, BC)
-    pl3, pc3 = pkl.reshape(K, BR, BC * 16), pkc.reshape(K, BR, BC * 16)
-    band = refL.reshape(K, (S + 1) * 4, refL.shape[-2], refL.shape[-1])
+    case = mc_inputs(dev)
+    f3 = case["mc_luma"][0]
+    BR, BC = f3.shape[1:]
     fl = f3.cpu().numpy()
     used = [int(((fl >> l) & 1).sum()) * 64 for l in (0, 1)]  # samples
-    step_bytes = (f3.numel() + pl3.numel()) * 4
-    for name, kern, plain, args, per_sample, out_h in (
-            ("mc_luma", M.mc_luma, M.mc_luma_plain, (f3, pl3, band, 2), 2,
-             8 * BR),
-            ("mc_chroma", M.mc_chroma, M.mc_chroma_plain, (f3, pc3, refC, 2),
-             1, 4 * BR)):
+    step_bytes = (f3.numel() + case["mc_luma"][1].numel()) * 4
+    for name, per_sample, out_h in (("mc_luma", 2, 8 * BR),
+                                    ("mc_chroma", 1, 4 * BR)):
+        kern, plain, args = COUNTED[name], MC_PLAIN[name], case[name]
         err = check_equal(name, kern(*args), plain(*args))
         torch.cuda.synchronize()
         ms = cuda_ms(lambda: kern(*args), 20)
+        dms = device_ms(name, lambda: kern(*args), 20)
         plain_ms = cuda_ms(lambda: plain(*args), 3)
         # least bytes: flags + load words read once, both lists' outputs
         # written once, and per used output sample the distinct ring bytes
         # it needs (luma: one sample of each of 2 half-pel planes; chroma:
         # 1, the 2x2 footprints of neighbouring samples overlap)
         samples = sum(used) if name == "mc_luma" else sum(used) // 2
-        nbytes = step_bytes + 2 * K * out_h * 8 * BC + per_sample * samples
+        out_bytes = 2 * K * out_h * 8 * BC
+        nbytes = step_bytes + out_bytes + per_sample * samples
         ops = 12 * samples          # address + filter integer ops / sample
-        out[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                         bytes=nbytes, ops=ops)
-        log(f"[kernels] {name}: exact; {ms:.3f} ms vs plain "
-            f"{plain_ms:.3f} ms")
+        # the sector floor, an estimate: the same, with the ring read in
+        # the 32-byte sectors that this data's random offsets touch
+        sectors = mc_sectors(name, *args)
+        sector_bytes = step_bytes + out_bytes + 32 * sectors
+        out[name] = dict(max_abs_err=err, ms=ms, device_ms=dms,
+                         plain_ms=plain_ms, bytes=nbytes, ops=ops,
+                         ring_sectors=sectors, sector_bytes=sector_bytes)
+        log(f"[kernels] {name}: exact; {ms:.3f} ms (device {dms:.4f} ms) "
+            f"vs plain {plain_ms:.3f} ms; {sectors} ring sectors, sector "
+            f"floor {sector_bytes / HBM_BYTES_PER_S * 1e3:.4f} ms")
+    del case
+
+    # K=8 (bench.py's lanes): times; then exact on K=8, an odd geometry,
+    # the clamp input and one list
+    case = mc_inputs(dev, 8, K=8)
+    for name, args in case.items():
+        check_equal(f"{name} K=8", COUNTED[name](*args),
+                    MC_PLAIN[name](*args))
+        out[name]["ms_k8"] = cuda_ms(lambda: COUNTED[name](*args), 20)
+        out[name]["device_ms_k8"] = device_ms(
+            name, lambda: COUNTED[name](*args), 20)
+    del case, args
+    for label, kw in (("K=3 5x3 mbs", dict(K=3, mbW=5, mbH=3)),
+                      ("clamp", dict(mvmax=2000)),
+                      ("one list", dict(has_b=False))):
+        for name, args in mc_inputs(dev, 9, **kw).items():
+            check_equal(f"{name} {label}", COUNTED[name](*args),
+                        MC_PLAIN[name](*args))
+    log(f"[kernels] K=8: mc_luma {out['mc_luma']['ms_k8']:.3f} ms (device "
+        f"{out['mc_luma']['device_ms_k8']:.4f}), mc_chroma "
+        f"{out['mc_chroma']['ms_k8']:.3f} ms (device "
+        f"{out['mc_chroma']['device_ms_k8']:.4f}); MC exact at K=8, on "
+        f"K=3 5x3 mbs, the clamp input (mvs to +-2000) and one list")
 
     y, cb, cr, pd, bs_v, bs_h = deblock_inputs(dev)
     want = D.deblock_scan(y.clone(), cb.clone(), cr.clone(), pd, bs_v, bs_h,
@@ -281,6 +406,10 @@ def phase_kernels(dev):
     it = iter(frames)
     ms = cuda_ms(lambda: D.deblock_batch(*next(it), pd, bs_v, bs_h, MBW,
                                          MBH), 5)
+    # in place: each traced call filters a fresh copy (the copies are
+    # other device functions, outside the kernel's sum)
+    dms = device_ms("deblock", lambda: D.deblock_batch(
+        y.clone(), cb.clone(), cr.clone(), pd, bs_v, bs_h, MBW, MBH), 5)
     plain_ms = cuda_ms(lambda: D.deblock_scan(y, cb, cr, pd, bs_v, bs_h,
                                               MBW, MBH), 1)
     # least bytes: every sample read and written once (int32), the
@@ -293,9 +422,10 @@ def phase_kernels(dev):
     # lines and at most 4 chroma lines, ~40 integer ops a line
     act = (bs_v > 0).sum() + (bs_h > 0).sum()
     ops = int(act) * 8 * 40
-    out["deblock"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                          bytes=nbytes, ops=ops)
-    log(f"[kernels] deblock: exact; {ms:.3f} ms vs plain {plain_ms:.3f} ms")
+    out["deblock"] = dict(max_abs_err=err, ms=ms, device_ms=dms,
+                          plain_ms=plain_ms, bytes=nbytes, ops=ops)
+    log(f"[kernels] deblock: exact; {ms:.3f} ms (device {dms:.4f} ms) vs "
+        f"plain {plain_ms:.3f} ms")
 
     p, frames = intra_case(dev, 13)
     want = I.intra_scan_sheared(*frames, p, MBW, MBH)
@@ -305,6 +435,8 @@ def phase_kernels(dev):
               for _ in range(6)]
     it = iter(copies)
     ms = cuda_ms(lambda: I.intra_batch(*next(it), p, MBW, MBH), 5)
+    dms = device_ms("intra", lambda: I.intra_batch(
+        *[f.clone() for f in frames[:3]], *frames[3:], p, MBW, MBH), 5)
     plain_ms = cuda_ms(lambda: I.intra_scan_sheared(*frames, p, MBW, MBH), 1)
     # least bytes: the frames read and written once, the residuals, PCM
     # samples, mode and flag planes read once (int32)
@@ -316,9 +448,11 @@ def phase_kernels(dev):
     # this data's intra and PCM mbs
     n_intra = int(((p["mb_flags"] & 1) > 0).sum())
     ops = 12 * 384 * n_intra
-    out["intra"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                        bytes=nbytes, ops=ops, waves=MBW + 2 * MBH - 2)
-    log(f"[kernels] intra: exact; {ms:.3f} ms vs plain {plain_ms:.3f} ms")
+    out["intra"] = dict(max_abs_err=err, ms=ms, device_ms=dms,
+                        plain_ms=plain_ms, bytes=nbytes, ops=ops,
+                        waves=MBW + 2 * MBH - 2)
+    log(f"[kernels] intra: exact; {ms:.3f} ms (device {dms:.4f} ms) vs "
+        f"plain {plain_ms:.3f} ms")
 
     # intra-sparse input: the level rounds (the lockstep route on P/B
     # steps) against the kernel on the same frames
@@ -348,13 +482,20 @@ def phase_kernels(dev):
     it = iter([(y.clone(), cb.clone(), cr.clone()) for _ in range(6)])
     out["deblock"]["ms_k8"] = cuda_ms(
         lambda: D.deblock_batch(*next(it), pd, bs_v, bs_h, MBW, MBH), 5)
+    out["deblock"]["device_ms_k8"] = device_ms("deblock", lambda: (
+        D.deblock_batch(y.clone(), cb.clone(), cr.clone(), pd, bs_v, bs_h,
+                        MBW, MBH)), 5)
     p, frames = intra_case(dev, 14, K=8)
     it = iter([[f.clone() for f in frames[:3]] + frames[3:]
                for _ in range(6)])
     out["intra"]["ms_k8"] = cuda_ms(
         lambda: I.intra_batch(*next(it), p, MBW, MBH), 5)
-    log(f"[kernels] K=8: deblock {out['deblock']['ms_k8']:.3f} ms, intra "
-        f"{out['intra']['ms_k8']:.3f} ms")
+    out["intra"]["device_ms_k8"] = device_ms("intra", lambda: I.intra_batch(
+        *[f.clone() for f in frames[:3]], *frames[3:], p, MBW, MBH), 5)
+    log(f"[kernels] K=8: deblock {out['deblock']['ms_k8']:.3f} ms (device "
+        f"{out['deblock']['device_ms_k8']:.4f}), intra "
+        f"{out['intra']['ms_k8']:.3f} ms (device "
+        f"{out['intra']['device_ms_k8']:.4f})")
     del y, cb, cr, pd, bs_v, bs_h, p, frames, it
 
     # exact on an odd geometry and at K=16 (1088 row workers)
@@ -590,14 +731,17 @@ def profiled(run):
         by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:PROFILE_TOP]
     calls = read_counts()
-    per_call = {}
+    per_call, kernel_ms = {}, {}
     for k, sym in SYMBOLS.items():
+        ev = [e for e in dev if sym in e.name]
+        kernel_ms[k] = sum(e.time_range.elapsed_us() for e in ev) / 1e3
         if calls[k]:
-            per_call[k] = sum(1 for e in dev if sym in e.name) / calls[k]
+            per_call[k] = len(ev) / calls[k]
     return {"frames": n, "wall_ms": wall * 1e3, "device_busy_ms": busy,
             "idle_share": 1 - busy / (wall * 1e3),
             "device_events": len(dev),
             "top_kernels_ms": [(k[:80], v / 1e3) for k, v in top],
+            "kernel_device_ms": kernel_ms,
             "calls": calls, "device_launches_per_call": per_call}
 
 
@@ -608,7 +752,7 @@ def phase_profile(data):
                                                                 lanes=2)),
             ("decode_annexb", lambda: decode_annexb(data))):
         res[name] = r = profiled(run)
-        for k in ("intra", "deblock"):
+        for k in KERNELS:
             if r["device_launches_per_call"].get(k) != 1:
                 raise AssertionError(
                     f"{name}: {k} is not one device launch a call: "
@@ -617,7 +761,9 @@ def phase_profile(data):
             f"({r['device_busy_ms']:.1f} ms busy of {r['wall_ms']:.1f} ms "
             f"wall); top: " + ", ".join(f"{k[:40]} {v:.1f} ms"
                                         for k, v in r["top_kernels_ms"][:3])
-            + f"; device launches a call {r['device_launches_per_call']}")
+            + f"; device launches a call {r['device_launches_per_call']}; "
+            f"port kernels' device ms " + ", ".join(
+                f"{k} {v:.3f}" for k, v in r["kernel_device_ms"].items()))
     return res
 
 
@@ -665,6 +811,8 @@ def main():
                      "replaces": repl, "launches": dec["launches"][name],
                      "launches_decode_annexb": one["launches"][name],
                      "max_abs_err": k["max_abs_err"], "ms": k["ms"],
+                     "device_ms": k["device_ms"], "ms_k8": k["ms_k8"],
+                     "device_ms_k8": k["device_ms_k8"],
                      "plain_ms": k["plain_ms"],
                      "bound_ms": max(t_bytes, t_ops),
                      "bound_by": "bytes" if t_bytes >= t_ops
@@ -672,8 +820,6 @@ def main():
                      "library_ms": None,
                      "device_launches_per_call": report["profile"][
                          "decode_annexb"]["device_launches_per_call"][name]})
-        if "ms_k8" in k:
-            rows[-1]["ms_k8"] = k["ms_k8"]
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
         json.dump(dict(report, rows=rows), f, indent=1, default=str)

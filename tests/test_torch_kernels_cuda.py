@@ -12,11 +12,10 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-from chip_smoke import deblock_inputs, intra_case, \
-    intra_inputs  # noqa: E402
+from chip_smoke import deblock_inputs, intra_case, intra_inputs, \
+    mc_inputs  # noqa: E402
 from edge264_tpu_torch import streams  # noqa: E402
 from edge264_tpu_torch.api import decode_annexb  # noqa: E402
-from edge264_tpu_torch.convert import planes_to_torch  # noqa: E402
 from edge264_tpu_torch.ops import deblock as D  # noqa: E402
 from edge264_tpu_torch.ops import intra as I  # noqa: E402
 from edge264_tpu_torch.ops import mc as M  # noqa: E402
@@ -62,54 +61,82 @@ def test_deblock_kernel_matches_plain(dev):
     assert D.deblock_batch.launches == n + 1
 
 
-def _mc_cases(dev, rng, K, S, mbW, mbH, has_b):
-    """(kernel, plain, args) for mc_luma and mc_chroma on one random input:
-    per-8x8 mvs up to +-300 quarter-pels past every edge, some 16x8 pairs
-    and split cells, unused cells."""
-    BH, BW = 4 * mbH, 4 * mbW
-    planes = []
-    for _ in range(K):
-        mv8 = rng.randint(-300, 301, (BH // 2, BW // 2, 2, 2))
-        rs8 = rng.randint(-1, S, (BH // 2, BW // 2, 2))
-        pair = np.repeat(rng.rand(BH // 2, BW // 4) < 0.3, 2, 1)
-        mv8 = np.where(pair[..., None, None], np.repeat(mv8[:, ::2], 2, 1),
-                       mv8)
-        rs8 = np.where(pair[..., None], np.repeat(rs8[:, ::2], 2, 1), rs8)
-        mvs = np.repeat(np.repeat(mv8, 2, 0), 2, 1)
-        sub = np.repeat(np.repeat(rng.rand(BH // 2, BW // 2) < 0.3, 2, 0),
-                        2, 1)
-        mvs = np.where(sub[..., None, None],
-                       rng.randint(-300, 301, (BH, BW, 2, 2)), mvs)
-        planes.append({"refslot": np.repeat(np.repeat(rs8, 2, 0), 2, 1),
-                       "mvs": mvs})
-    p = planes_to_torch(planes, set(), dev)
-    smap = np.zeros((K, 32), np.int32)
-    smap[:, :S] = np.arange(S)
-    flg, pkl, pkc = M.pack_mc_params(p, torch.as_tensor(smap).to(dev),
-                                     has_b, mbW, mbH)
-    y = torch.randint(0, 256, (K * (S + 1), 16 * mbH, 16 * mbW),
-                      dtype=torch.uint8, device=dev)
-    c = torch.randint(0, 256, (2, K * (S + 1), 8 * mbH, 8 * mbW),
-                      dtype=torch.uint8, device=dev)
-    L, C = M.make_ref_planes(y, c[0], c[1])
-    BR, BC = flg.shape[1], flg.shape[3]
-    n = 2 if has_b else 1
-    f3 = flg.reshape(K, BR, BC)
-    band = L.reshape(K, -1, L.shape[-2], L.shape[-1])
-    bandC = C.reshape((K, S + 1) + C.shape[1:])
-    return [(kern, plain, (f3, pk.reshape(K, BR, BC * 16), bd, n))
-            for kern, plain, pk, bd in (
-                (M.mc_luma, M.mc_luma_plain, pkl, band),
-                (M.mc_chroma, M.mc_chroma_plain, pkc, bandC))]
+def _mc_cases(dev, seed, K, S, mbW, mbH, has_b, arm=None, mvmax=300):
+    """(kernel, plain, args) for mc_luma and mc_chroma on one random input
+    (chip_smoke.mc_inputs): per-8x8 mvs up to +-mvmax quarter-pels past
+    every edge, unused cells, and with arm=None some 16x8 pairs and split
+    cells; `arm` forces one kernel arm on every block (mc_planes)."""
+    case = mc_inputs(dev, seed, K, mbW, mbH, S, has_b, arm=arm,
+                     mvmax=mvmax)
+    return [(M.mc_luma, M.mc_luma_plain, case["mc_luma"]),
+            (M.mc_chroma, M.mc_chroma_plain, case["mc_chroma"])]
+
+
+def _mc_check(cases):
+    for kern, plain, args in cases:
+        n = kern.launches
+        got, want = kern(*args), plain(*args)
+        assert kern.launches == n + 1
+        assert len(got) == len(want) == args[-1]
+        _assert_equal(want, got)
 
 
 @pytest.mark.parametrize("has_b", [True, False])
 def test_mc_kernels_match_plain(dev, has_b):
-    for kern, plain, args in _mc_cases(dev, np.random.RandomState(5), 2, 3,
-                                       120, 4, has_b):
-        got, want = kern(*args), plain(*args)
-        assert len(got) == len(want) == args[-1]
-        _assert_equal(want, got)
+    _mc_check(_mc_cases(dev, 5, 2, 3, 120, 4, has_b))
+
+
+# the flag bits every real block of an input carries (all) or lacks (none)
+# when one arm is forced
+_ARM_BITS = {"uniform": (M._F_UNIFORM, M._F_PAIR | M._F_PAIRODD),
+             "pair": (M._F_UNIFORM, 0), "quad": (0, M._F_UNIFORM),
+             "unused": (0, 3)}
+
+
+@pytest.mark.parametrize("arm", ["uniform", "pair", "quad", "unused"])
+def test_mc_kernel_arms(dev, arm):
+    """Every block on one arm: 8x8 uniform, 16x8 pairs, per-4x4 quadrants
+    (with unused cells), no list used."""
+    mbW, mbH = 40, 6
+    cases = _mc_cases(dev, 40, 2, 4, mbW, mbH, True, arm=arm)
+    f = cases[0][2][0][:, :, :2 * mbW]
+    have, lack = _ARM_BITS[arm]
+    assert ((f & have) == have).all() and not (f & lack).any()
+    if arm == "pair":
+        assert ((f[:, :, 0::2] & M._F_PAIR) != 0).all()
+        assert ((f[:, :, 1::2] & M._F_PAIRODD) != 0).all()
+    _mc_check(cases)
+
+
+@pytest.mark.parametrize("has_b", [True, False])
+def test_mc_kernel_clamps(dev, has_b):
+    """mvs to +-2000 quarter-pels: nearly every load word sits at its
+    arm's clamp, where the kernels' aligned word reads meet the right and
+    bottom window limits."""
+    _mc_check(_mc_cases(dev, 41 + has_b, 2, 3, 20, 6, has_b, mvmax=2000))
+
+
+# (K, mbW, mbH): padded block columns past 2*mbW (5 and 11 mbs wide), 4K
+# in one lane, bench.py's 8 lanes at 1080p
+MC_GEOMETRIES = [(2, 5, 3), (3, 11, 9), (1, 240, 135), (8, 120, 68)]
+
+
+@pytest.mark.parametrize("K,mbW,mbH", MC_GEOMETRIES)
+def test_mc_kernel_geometries(dev, K, mbW, mbH):
+    _mc_check(_mc_cases(dev, 50 + mbW, K, 3, mbW, mbH, True))
+
+
+def test_mc_kernels_back_to_back(dev):
+    """20 calls of each kernel with fresh inputs, launched without a sync
+    between them."""
+    cases = [_mc_cases(dev, 200 + s, 2, 3, 24, 5, s % 2 == 0)
+             for s in range(20)]
+    wants = [[plain(*args) for _, plain, args in c] for c in cases]
+    torch.cuda.synchronize()
+    gots = [[kern(*args) for kern, _, args in c] for c in cases]
+    for want, got in zip(wants, gots):
+        for w, g in zip(want, got):
+            _assert_equal(w, g)
 
 
 @pytest.mark.parametrize("has_t8,has_pcm", [(True, True), (False, False)])
@@ -277,6 +304,5 @@ def test_kernels_launch_on_their_tensors_device(dev):
     assert torch.cuda.current_device() == 0
     _assert_equal(*_deblock_pair(d1, 3, 2, 7, 5))
     _assert_equal(*_intra_pair(d1, 3, 2, 7, 5))
-    for kern, plain, args in _mc_cases(d1, np.random.RandomState(9), 2, 2,
-                                       6, 4, True):
+    for kern, plain, args in _mc_cases(d1, 9, 2, 2, 6, 4, True):
         _assert_equal(plain(*args), kern(*args))

@@ -96,11 +96,15 @@ def test_make_ref_planes_matches_jax(geom):
 
 
 @pytest.mark.parametrize("has_b", [True, False])
-@pytest.mark.parametrize("geom", [(10, 3), (4, 4)])
+@pytest.mark.parametrize("geom", [(10, 3, 300), (4, 4, 300), (6, 2, 2000)])
 def test_pack_and_plain_mc_match_pallas(has_b, geom):
-    mbW, mbH = geom
+    """geom: (mbW, mbH, mvmax).  At mvmax=2000 quarter-pels nearly every
+    load word sits at its arm's clamp: the plain versions, the card
+    kernels' yardstick, agree with the Pallas kernels there too."""
+    mbW, mbH, mvmax = geom
     K, S = 2, 3
-    planes, frames, smap = _mk(mbW, mbH, K, S, seed=mbW * 10 + has_b)
+    planes, frames, smap = _mk(mbW, mbH, K, S, seed=mbW * 10 + has_b,
+                               mvmax=mvmax)
     jp = _jp(planes)
     jpk = PM.pack_mc_params(jp, jnp.asarray(smap), has_b, mbW, mbH)
     p = planes_to_torch(planes, {"wp", "wp8"}, "cpu")
