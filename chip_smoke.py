@@ -28,22 +28,31 @@ Phases (any failure raises and exits non-zero):
               (device="cpu", the plain versions) as the reference: every
               frame byte-identical, every digest == host_frame_digest;
               every kernel and both intra routes (the kernel on IDR steps,
-              the level rounds on intra-sparse P/B steps) used.
+              the level rounds on intra-sparse P/B steps) used; each
+              step's arena bytes (beside the int32 bytes planes_to_torch
+              would send) and the packer's host ms.
   4. single   the single-frame path: decode_annexb on cuda over the same
               stream, every frame byte-identical to phase 3's CPU frames,
-              all four kernels launched; then both paths on a 5x3-mb
-              stream (an mb count that is no multiple of 4), byte-identical
-              to the CPU.
+              all four kernels launched, each frame's arena bytes and
+              pack ms; then both paths on a 5x3-mb stream (an mb count
+              that is no multiple of 4), byte-identical to the CPU.
   5. profile  one more decode of each path under torch.profiler: the
               device's busy ms and idle share of the wall time, the
-              device ms of the top kernels, and each kernel's device
-              launches per wrapper call (each must be one).
-  6. report   per-stage device ms and frames/s of both paths, then the
-              `kernels` JSON line, the card's name and power limit, and
-              the final JSON line.  Details also go to
-              chiprun_out/chip_smoke.json.
+              device ms of the top kernels, each kernel's device launches
+              per wrapper call (each must be one), and the host-to-device
+              copies by pinned and pageable source (every arena upload
+              must be one pinned copy).
+  6. entry    decode_annexb_parallel (two worker threads) and the
+              command-line app (cli.main, golden YUV from phase 3's CPU
+              frames) on cuda: byte-identical, PASS.
+  7. report   per-stage device ms (unpack_planes among them) and frames/s
+              of both paths, then the `kernels` JSON line, the card's name
+              and power limit, and the final JSON line.  Details also go
+              to chiprun_out/chip_smoke.json.
 """
 
+import contextlib
+import io
 import json
 import os
 import subprocess
@@ -56,16 +65,18 @@ import torch
 from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
-from edge264_tpu_torch import native, streams
+from edge264_tpu_torch import cli, native, streams
 from edge264_tpu_torch.api import decode_annexb
-from edge264_tpu_torch.convert import planes_to_torch
+from edge264_tpu_torch.convert import ALIGN, planes_to_torch
 from edge264_tpu_torch.kernels import build
+from edge264_tpu_torch.ops import arena as A
 from edge264_tpu_torch.ops import backend as BK
 from edge264_tpu_torch.ops import batched as B
 from edge264_tpu_torch.ops import deblock as D
 from edge264_tpu_torch.ops import intra as I
 from edge264_tpu_torch.ops import mc as M
 from edge264_tpu_torch.parallel.batch import decode_gops_batched
+from edge264_tpu_torch.parallel.gop import decode_annexb_parallel
 
 MBW, MBH, K, S = 120, 68, 2, 8
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM device memory
@@ -519,13 +530,64 @@ def phase_kernels(dev):
 # ---------------------------------------------------------------------------
 # phase 3: the main path
 
-STAGES = ("residual_frame", "pack_mc_params", "run_mc_kernels", "combine_mc",
-          "intra_batch", "intra_rounds", "deblock_bs", "deblock_batch",
-          "_emit_aux", "make_ref_planes")
+STAGES = ("unpack_planes", "residual_frame", "pack_mc_params",
+          "run_mc_kernels", "combine_mc", "intra_batch", "intra_rounds",
+          "deblock_bs", "deblock_batch", "_emit_aux", "make_ref_planes")
 # the single-frame backend's stages (ops.backend's names)
-STAGES_1 = ("residual_frame", "pack_mc_params", "run_mc_kernels",
-            "combine_mc", "intra_batch", "deblock_bs", "deblock_batch",
-            "blend_recovered", "make_ref_planes")
+STAGES_1 = ("unpack_planes", "residual_frame", "pack_mc_params",
+            "run_mc_kernels", "combine_mc", "intra_batch", "deblock_bs",
+            "deblock_batch", "blend_recovered", "make_ref_planes")
+
+
+def dense_int32_bytes(layout, K):
+    """The bytes convert.planes_to_torch would upload for the same step:
+    every plane of the layout as int32, each start rounded up to 16
+    bytes, and the meta block."""
+    n = sum(-(-K * int(np.prod(shape)) // ALIGN) * ALIGN
+            for _k, _dt, shape, _off, _m in layout)
+    return 4 * (n + K * B.META_WORDS)
+
+
+class PackMeter:
+    """Wraps arena.pack_planes_batch (both decode paths call it through
+    the module): per call the host ms (perf_counter), the arena's bytes
+    (the one upload) and the int32 bytes planes_to_torch would have sent
+    for the same layout."""
+
+    def __enter__(self):
+        self.calls = []
+        self.saved = A.pack_planes_batch
+
+        def timed(planes_list, *a, **kw):
+            t0 = time.perf_counter()
+            buf, layout, off = self.saved(planes_list, *a, **kw)
+            self.calls.append(dict(
+                ms=(time.perf_counter() - t0) * 1e3, bytes=buf.nbytes,
+                dense_bytes=dense_int32_bytes(layout, len(planes_list)),
+                pinned=buf.is_pinned()))
+            return buf, layout, off
+        A.pack_planes_batch = timed
+        return self
+
+    def __exit__(self, *exc):
+        A.pack_planes_batch = self.saved
+
+    def summary(self):
+        c = self.calls
+        return {"uploads": len(c),
+                "arena_bytes": [x["bytes"] for x in c],
+                "dense_int32_bytes": [x["dense_bytes"] for x in c],
+                "pack_host_ms": [x["ms"] for x in c],
+                "pinned": all(x["pinned"] for x in c)}
+
+
+def log_pack(tag, unit, s):
+    log(f"[{tag}] arena upload per {unit}: "
+        + ", ".join(f"{b:,}" for b in s["arena_bytes"])
+        + " bytes (planes_to_torch would send "
+        + ", ".join(f"{b:,}" for b in s["dense_int32_bytes"])
+        + "); pack host ms " + ", ".join(f"{m:.2f}" for m in
+                                         s["pack_host_ms"]))
 
 
 class StageTimer:
@@ -595,10 +657,15 @@ def phase_decode():
     list(decode_gops_batched(data, lanes=2, sink="digest"))
 
     reset_counts()
-    t0 = time.perf_counter()
-    frames = list(decode_gops_batched(data, lanes=2))
-    res["frames_s"] = time.perf_counter() - t0
+    with PackMeter() as pm:
+        t0 = time.perf_counter()
+        frames = list(decode_gops_batched(data, lanes=2))
+        res["frames_s"] = time.perf_counter() - t0
     res["launches"] = read_counts()
+    res["pack"] = pm.summary()
+    if not res["pack"]["pinned"] or res["pack"]["uploads"] != 3:
+        raise AssertionError(f"lockstep arena uploads: {res['pack']}")
+    log_pack("decode", "step", res["pack"])
     if not all(res["launches"].values()):
         raise AssertionError(f"a kernel or route never ran: "
                              f"{res['launches']}")
@@ -645,10 +712,15 @@ def phase_single(data, ref):
     res = {}
     list(decode_annexb(data))          # warm-up, not counted
     reset_counts()
-    t0 = time.perf_counter()
-    frames = list(decode_annexb(data))
-    res["frames_s"] = time.perf_counter() - t0
+    with PackMeter() as pm:
+        t0 = time.perf_counter()
+        frames = list(decode_annexb(data))
+        res["frames_s"] = time.perf_counter() - t0
     res["launches"] = read_counts()
+    res["pack"] = pm.summary()
+    if not res["pack"]["pinned"] or res["pack"]["uploads"] != len(ref):
+        raise AssertionError(f"single-frame arena uploads: {res['pack']}")
+    log_pack("single", "frame", res["pack"])
     if not all(res["launches"][n] for n in KERNELS):
         raise AssertionError(f"a kernel never ran: {res['launches']}")
     if len(frames) != len(ref):
@@ -708,20 +780,76 @@ SYMBOLS = {"intra": "intra_rows", "deblock": "deblock_rows",
            "mc_luma": "mc_luma", "mc_chroma": "mc_chroma"}
 
 
-def profiled(run):
+def htod_copies(prof, name):
+    """The trace's host-to-device copies as (label, bytes, us), label
+    "Pinned" or "Pageable" as the profiler names the source memory.  The
+    bytes are only in the exported trace's event arguments."""
+    os.makedirs(OUT_DIR, exist_ok=True)
+    path = os.path.join(OUT_DIR, f"trace_{name}.json")
+    prof.export_chrome_trace(path)
+    with open(path) as f:
+        trace = json.load(f)
+    os.remove(path)
+    out = []
+    for e in trace["traceEvents"]:
+        n = e.get("name", "")
+        if "Memcpy HtoD" in n:
+            out.append(("Pinned" if "Pinned" in n else "Pageable",
+                        int(e.get("args", {}).get("bytes", -1)),
+                        float(e.get("dur", 0))))
+    return out
+
+
+def upload_check(name, copies, arena_bytes):
+    """No arena upload of the run may be a pageable copy (arena.upload
+    also refuses a pageable buffer, and PackMeter sees every packed
+    buffer pinned).  The trace can lack some of a run's device events
+    (phase 2 sees it for kernels), so arena uploads missing from it are
+    logged, not failed.  Returns the copies' count, bytes and device ms
+    by label, and the arena uploads found as pinned copies."""
+    pinned = sorted(b for lab, b, _ in copies if lab == "Pinned")
+    pageable = {b for lab, b, _ in copies if lab == "Pageable"}
+    found = 0
+    for b in arena_bytes:
+        if b in pageable:
+            raise AssertionError(f"{name}: an arena upload of {b} bytes "
+                                 "is pageable")
+        if b in pinned:
+            pinned.remove(b)
+            found += 1
+    largest = sorted(copies, key=lambda c: -c[1])[:8]
+    if found < len(arena_bytes):
+        log(f"[profile] {name}: the trace holds {found} of "
+            f"{len(arena_bytes)} arena uploads as pinned copies; its "
+            f"largest host-to-device copies: {largest}")
+    out = {lab: {"count": sum(1 for x in copies if x[0] == lab),
+                 "bytes": sum(x[1] for x in copies if x[0] == lab),
+                 "device_ms": sum(x[2] for x in copies if x[0] == lab)
+                 / 1e3}
+           for lab in ("Pinned", "Pageable")}
+    out["arena_uploads"] = {"run": len(arena_bytes), "in_trace": found}
+    out["largest"] = largest
+    return out
+
+
+def profiled(name, run):
     """One traced decode (the path already warm): wall ms with the device
     synchronized at both ends, device busy ms (the union of the kernel
     and copy intervals), the idle share 1 - busy / wall, the device ms of
-    the top kernels by name, and each kernel's device launches per
-    wrapper call."""
+    the top kernels by name, each kernel's device launches per wrapper
+    call, and the host-to-device copies ("Memcpy HtoD") by source memory,
+    every arena upload required pinned."""
     torch.cuda.synchronize()
     reset_counts()
     with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+                             ProfilerActivity.CUDA]) as prof, \
+            PackMeter() as pm:
         t0 = time.perf_counter()
         n = len(list(run()))
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+    htod = upload_check(name, htod_copies(prof, name),
+                        pm.summary()["arena_bytes"])
     dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
     if not dev:
         raise RuntimeError("the trace holds no device time")
@@ -741,7 +869,7 @@ def profiled(run):
             "idle_share": 1 - busy / (wall * 1e3),
             "device_events": len(dev),
             "top_kernels_ms": [(k[:80], v / 1e3) for k, v in top],
-            "kernel_device_ms": kernel_ms,
+            "kernel_device_ms": kernel_ms, "htod": htod,
             "calls": calls, "device_launches_per_call": per_call}
 
 
@@ -751,7 +879,7 @@ def phase_profile(data):
             ("decode_gops_batched", lambda: decode_gops_batched(data,
                                                                 lanes=2)),
             ("decode_annexb", lambda: decode_annexb(data))):
-        res[name] = r = profiled(run)
+        res[name] = r = profiled(name, run)
         for k in KERNELS:
             if r["device_launches_per_call"].get(k) != 1:
                 raise AssertionError(
@@ -764,6 +892,56 @@ def phase_profile(data):
             + f"; device launches a call {r['device_launches_per_call']}; "
             f"port kernels' device ms " + ", ".join(
                 f"{k} {v:.3f}" for k, v in r["kernel_device_ms"].items()))
+        log(f"[profile] {name}: Memcpy HtoD " + "; ".join(
+            f"{lab} {r['htod'][lab]['count']} copies, "
+            f"{r['htod'][lab]['bytes']:,} bytes, "
+            f"{r['htod'][lab]['device_ms']:.3f} ms"
+            for lab in ("Pinned", "Pageable"))
+            + f"; arena uploads found pinned in the trace "
+            f"{r['htod']['arena_uploads']['in_trace']} of "
+            f"{r['htod']['arena_uploads']['run']}, none pageable")
+    return res
+
+
+# ---------------------------------------------------------------------------
+# phase 6: the other entry points on the card
+
+def phase_entry_points(data, ref):
+    """decode_annexb_parallel (two worker threads, one GOP each) and the
+    command-line app, both on cuda, against phase 3's CPU frames."""
+    res = {}
+    t0 = time.perf_counter()
+    got = list(decode_annexb_parallel(data, n_workers=2))
+    res["parallel_s"] = time.perf_counter() - t0
+    if len(got) != len(ref):
+        raise AssertionError(f"parallel: {len(got)} frames, want {len(ref)}")
+    for i, (a, b) in enumerate(zip(ref, got)):
+        for c in ("y", "cb", "cr"):
+            if not np.array_equal(getattr(a, c), getattr(b, c)):
+                raise AssertionError(f"parallel frame {i} {c}: cuda != cpu")
+    log(f"[entry] decode_annexb_parallel(n_workers=2): {len(got)} frames "
+        f"byte-identical to the cpu reference, "
+        f"{len(got) / res['parallel_s']:.2f} frames/s")
+
+    os.makedirs(OUT_DIR, exist_ok=True)
+    stream, yuv = (os.path.join(OUT_DIR, "smoke." + e) for e in ("264",
+                                                                "yuv"))
+    with open(stream, "wb") as f:
+        f.write(data)
+    with open(yuv, "wb") as f:
+        for fr in ref:
+            for c in ("y", "cb", "cr"):
+                f.write(np.ascontiguousarray(getattr(fr, c)).tobytes())
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = cli.main([stream, "-y", yuv, "-b"])
+    text = out.getvalue()
+    os.remove(stream)
+    os.remove(yuv)
+    res["cli_rc"], res["cli_out"] = rc, text
+    if rc != 0 or "PASS" not in text:
+        raise AssertionError(f"cli: rc {rc}, output {text!r}")
+    log("[entry] cli: " + " | ".join(ln.strip() for ln in text.splitlines()))
     return res
 
 
@@ -780,6 +958,7 @@ def main():
     report["decode"] = dec
     report["single"] = one = phase_single(data, ref)
     report["profile"] = phase_profile(data)
+    report["entry_points"] = phase_entry_points(data, ref)
 
     steps = dec["steps"]
     for n, v in dec["stage_ms"].items():
@@ -793,6 +972,13 @@ def main():
         f"({gpu})")
     log(f"[single] decode_annexb frames/s: "
         f"{one['frames'] / one['frames_s']:.2f} ({gpu})")
+    for tag, r, unit in (("decode", dec, "step"), ("single", one, "frame")):
+        p = r["pack"]
+        log(f"[{tag}] arena {sum(p['arena_bytes']) / p['uploads']:,.0f} "
+            f"bytes a {unit} (planes_to_torch "
+            f"{sum(p['dense_int32_bytes']) / p['uploads']:,.0f}), pack "
+            f"{sum(p['pack_host_ms']) / p['uploads']:.2f} host ms a {unit}"
+            f" ({gpu})")
 
     rows = []
     for name, src, repl in (

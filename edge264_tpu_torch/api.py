@@ -42,6 +42,17 @@ class Frame:
     return_arg: object = None
 
 
+def pixel_device(device=None):
+    """The pixel path's torch device: None -> "cuda", which raises when no
+    CUDA device is present; "cpu" runs the plain versions."""
+    import torch
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device: pass device='cpu' to decode on "
+                           "the CPU")
+    return dev
+
+
 def find_start_code(buf: bytes, offset: int = 0, four_byte: bool = False) -> int:
     """Return the index of the next 00 00 01 (or 00 00 00 01) start-code
     prefix at/after `offset`, or len(buf) if none.  Mirrors

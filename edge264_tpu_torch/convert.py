@@ -34,7 +34,9 @@ def _get(pl, k):
 
 def planes_to_torch(planes_list, keep, device, extra=None):
     """Stack K frames' syntax planes into int32 tensors [K, ...] on
-    `device` with ONE host-to-device copy.
+    `device` with ONE host-to-device copy.  No decode path uses it: they
+    upload the packed arena (ops/arena.py).  It builds kernel inputs from
+    synthetic planes (chip_smoke.py, the tests).
 
     planes_list: per lane a native SyntaxPlanes, a dict of numpy arrays
     (holding a subset of PLANE_KEYS), or None (a dead lane: all zeros).

@@ -34,7 +34,9 @@ ENTRIES = {
            "e264t_mc_chroma": [_P] * 5 + [_I] * 7 + [_P]},
 }
 
-_lock = threading.Lock()
+# one build and one load of each library per process, whichever thread
+# (decode_annexb_parallel's workers) asks first
+_lock = threading.RLock()
 _libs: dict = {}
 build_log: dict = {}     # name -> nvcc -Xptxas -v output of the last build
 
@@ -66,6 +68,11 @@ def build_all(names=tuple(ENTRIES), force: bool = False) -> dict:
     """Compile the named sources, one nvcc process each, all started
     together.  Returns {name: seconds} for the ones compiled; raises with
     nvcc's output when one fails."""
+    with _lock:
+        return _build_all(names, force)
+
+
+def _build_all(names, force):
     todo = [n for n in names if force or _stale(n)]
     if not todo:
         return {}

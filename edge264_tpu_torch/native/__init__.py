@@ -13,6 +13,7 @@ from __future__ import annotations
 import ctypes as C
 import os
 import subprocess
+import threading
 
 import numpy as np
 
@@ -40,16 +41,19 @@ def _needs_build() -> bool:
 def build(force: bool = False) -> str:
     """Compile the front end with g++ (once; rebuilt when a source is newer
     than the library).  The temporary name is per process, so concurrent
-    test workers never link into each other's output."""
-    if force or _needs_build():
-        os.makedirs(_BUILD, exist_ok=True)
-        tmp = f"{_LIB}.{os.getpid()}.tmp"
-        cmd = ["g++", *CXXFLAGS,
-               *[os.path.join(_SRC, s) for s in SOURCES], "-o", tmp]
-        r = subprocess.run(cmd, capture_output=True, text=True)
-        if r.returncode != 0:
-            raise RuntimeError(f"native build failed:\n{r.stderr}")
-        os.replace(tmp, _LIB)
+    test workers never link into each other's output, and the build runs
+    under a lock, so threads of one process (decode_annexb_parallel's
+    workers) build it once."""
+    with _lock:
+        if force or _needs_build():
+            os.makedirs(_BUILD, exist_ok=True)
+            tmp = f"{_LIB}.{os.getpid()}.tmp"
+            cmd = ["g++", *CXXFLAGS,
+                   *[os.path.join(_SRC, s) for s in SOURCES], "-o", tmp]
+            r = subprocess.run(cmd, capture_output=True, text=True)
+            if r.returncode != 0:
+                raise RuntimeError(f"native build failed:\n{r.stderr}")
+            os.replace(tmp, _LIB)
     return _LIB
 
 
@@ -78,38 +82,73 @@ class PlanesStruct(C.Structure):
         (n, C.c_void_p) for n in _PLANE_PTRS]
 
 
+class PackEntry(C.Structure):
+    """One arena-layout entry for e264t_pack_row (native/src/pack.cpp;
+    ops/arena.plan_layout makes the layout)."""
+    _fields_ = [("key", C.c_int32), ("kind", C.c_int32),
+                ("dst_item", C.c_int32), ("be", C.c_int32),
+                ("off", C.c_int64), ("bm_off", C.c_int64),
+                ("tab_off", C.c_int64), ("base_off", C.c_int64),
+                ("rows", C.c_int64), ("row_elems", C.c_int64),
+                ("U", C.c_int64)]
+
+
+class PackProbe(C.Structure):
+    _fields_ = [("gat_counts", C.c_int64 * 6),
+                ("exc_counts", C.c_int64 * 2),
+                ("coef8_ok", C.c_int32), ("dirty_all", C.c_int32)]
+
+
 _lib = None
+_lock = threading.RLock()     # one build and one load per process
 
 
 def load():
     global _lib
-    if _lib is None:
-        lib = C.CDLL(build())
-        lib.e264t_alloc.restype = C.c_void_p
-        lib.e264t_free.argtypes = [C.c_void_p]
-        lib.e264t_flush.argtypes = [C.c_void_p]
-        lib.e264t_decode_nal.argtypes = [C.c_void_p, C.c_char_p, C.c_size_t]
-        lib.e264t_decode_nal.restype = C.c_int
-        lib.e264t_poll.argtypes = [C.c_void_p, C.POINTER(Event)]
-        lib.e264t_poll.restype = C.c_int
-        lib.e264t_planes.argtypes = [C.c_void_p, C.c_int,
-                                     C.POINTER(PlanesStruct)]
-        lib.e264t_planes.restype = C.c_int
-        lib.e264t_format.argtypes = [C.c_void_p, C.POINTER(C.c_int32)]
-        lib.e264t_get_frame.argtypes = [C.c_void_p, C.c_int,
-                                        C.POINTER(C.c_int32)]
-        lib.e264t_get_frame.restype = C.c_int
-        lib.e264t_return_frame.argtypes = [C.c_void_p, C.c_int]
-        lib.e264t_get_log.argtypes = [C.c_void_p, C.c_char_p, C.c_size_t]
-        lib.e264t_get_log.restype = C.c_size_t
-        lib.e264t_set_logging.argtypes = [C.c_void_p, C.c_int, C.c_int]
-        lib.e264t_slot_info.argtypes = [C.c_void_p, C.c_int,
-                                        C.POINTER(C.c_int32)]
-        lib.e264t_set_threads.argtypes = [C.c_void_p, C.c_int]
-        lib.e264t_wait_frame.argtypes = [C.c_void_p]
-        lib.e264t_wait_frame.restype = C.c_int
-        _lib = lib
+    with _lock:
+        if _lib is None:
+            _lib = _bind(C.CDLL(build()))
     return _lib
+
+
+def _bind(lib):
+    """Declare every entry point's argument and result types."""
+    lib.e264t_alloc.restype = C.c_void_p
+    lib.e264t_free.argtypes = [C.c_void_p]
+    lib.e264t_flush.argtypes = [C.c_void_p]
+    lib.e264t_decode_nal.argtypes = [C.c_void_p, C.c_char_p, C.c_size_t]
+    lib.e264t_decode_nal.restype = C.c_int
+    lib.e264t_poll.argtypes = [C.c_void_p, C.POINTER(Event)]
+    lib.e264t_poll.restype = C.c_int
+    lib.e264t_planes.argtypes = [C.c_void_p, C.c_int,
+                                 C.POINTER(PlanesStruct)]
+    lib.e264t_planes.restype = C.c_int
+    lib.e264t_format.argtypes = [C.c_void_p, C.POINTER(C.c_int32)]
+    lib.e264t_get_frame.argtypes = [C.c_void_p, C.c_int,
+                                    C.POINTER(C.c_int32)]
+    lib.e264t_get_frame.restype = C.c_int
+    lib.e264t_return_frame.argtypes = [C.c_void_p, C.c_int]
+    lib.e264t_get_log.argtypes = [C.c_void_p, C.c_char_p, C.c_size_t]
+    lib.e264t_get_log.restype = C.c_size_t
+    lib.e264t_set_logging.argtypes = [C.c_void_p, C.c_int, C.c_int]
+    lib.e264t_slot_info.argtypes = [C.c_void_p, C.c_int,
+                                    C.POINTER(C.c_int32)]
+    lib.e264t_set_threads.argtypes = [C.c_void_p, C.c_int]
+    lib.e264t_wait_frame.argtypes = [C.c_void_p]
+    lib.e264t_wait_frame.restype = C.c_int
+    lib.e264t_dirty.argtypes = [C.c_void_p, C.c_int,
+                                C.POINTER(C.POINTER(C.c_uint64)),
+                                C.POINTER(C.c_size_t),
+                                C.POINTER(C.c_int)]
+    lib.e264t_dirty.restype = C.c_int
+    lib.e264t_pack_probe.argtypes = [C.c_void_p, C.c_int, C.c_int,
+                                     C.POINTER(PackProbe)]
+    lib.e264t_pack_probe.restype = C.c_int
+    lib.e264t_pack_row.argtypes = [C.c_void_p, C.c_int,
+                                   C.POINTER(PackEntry), C.c_int,
+                                   C.POINTER(C.c_uint8), C.c_int64]
+    lib.e264t_pack_row.restype = C.c_int
+    return lib
 
 
 class SyntaxPlanes:
@@ -136,6 +175,7 @@ class SyntaxPlanes:
             raise ValueError(f"bad slot {slot}")
         W, H = s.mb_w, s.mb_h
         self.mb_w, self.mb_h = W, H
+        self._handle, self._slot = handle, slot
 
         def arr(ptr, shape, dtype):
             n = int(np.prod(shape)) * np.dtype(dtype).itemsize
@@ -169,6 +209,50 @@ class SyntaxPlanes:
         self.sm8 = arr(s.sm8, (2, 64), np.uint8)
         self.mb_errors = arr(s.mb_errors, (H, W), np.uint8)
         self.slice_id = arr(s.slice_id, (H, W), np.uint16)
+        # the dirty-block records (tag << 48 | element offset, one per coded
+        # coefficient block, kept by the entropy pass for its lazy clears);
+        # dirty_all: a recovery cleared ranges wholesale, so the list is
+        # unreliable
+        dp = C.POINTER(C.c_uint64)()
+        dn = C.c_size_t()
+        da = C.c_int()
+        if lib.e264t_dirty(handle, slot, C.byref(dp), C.byref(dn),
+                           C.byref(da)) != 0:
+            # an empty list marked reliable would ship all-zero
+            # coefficient planes from the sparse packer
+            self.dirty = np.empty(0, np.uint64)
+            self.dirty_all = True
+        else:
+            n = int(dn.value)
+            self.dirty = (np.ctypeslib.as_array(dp, (n,)).copy() if n
+                          else np.empty(0, np.uint64))
+            self.dirty_all = bool(da.value)
+
+    def pack_probe(self, want_exc: bool = True):
+        """The native arena packer's probe: coded-row counts per gathered
+        plane (from the dirty list), split-mb counts for the base+exception
+        planes (want_exc), and whether every coefficient fits int8.  The
+        row lists stay on the slot for pack_row.  A PackProbe, or None on
+        a bad slot."""
+        pr = PackProbe()
+        rc = load().e264t_pack_probe(self._handle, self._slot,
+                                     1 if want_exc else 0, C.byref(pr))
+        return pr if rc == 0 else None
+
+    def pack_row(self, entries, n: int, out_row: np.ndarray,
+                 size: int) -> int:
+        """Pack this slot's planes by `n` PackEntry `entries` into the
+        first `size` bytes of `out_row` (the interpreter lock is released
+        for the call).  The C function checks its bounds only after it has
+        written an entry, so a row shorter than `size` is refused here.
+        Returns 0 on success, else the C function's error code."""
+        if (out_row.dtype != np.uint8 or out_row.ndim != 1
+                or not out_row.flags.c_contiguous or out_row.size < size):
+            raise ValueError(f"pack_row: out_row of {out_row.size} "
+                             f"{out_row.dtype} bytes cannot hold {size}")
+        return load().e264t_pack_row(
+            self._handle, self._slot, entries, n,
+            out_row.ctypes.data_as(C.POINTER(C.c_uint8)), C.c_int64(size))
 
 
 class NativeDecoder:

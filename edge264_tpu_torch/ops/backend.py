@@ -8,7 +8,10 @@ the ring holds a reference) -> intra -> deblock -> concealment blend, with
 the same kernels as the lockstep step (K = 1), and returns device tensors
 so the host parses the next slice while the device works.  On the card
 every frame goes through the intra and deblock kernels, and every frame
-with a reference through the two MC kernels.
+with a reference through the two MC kernels.  A frame's planes and meta
+block go up as one arena (ops/arena.py) in one copy: dense, int16
+levels, no gathering, the conditional planes sticky for the stream, as
+`JaxBackend` packs them.
 """
 
 from __future__ import annotations
@@ -16,13 +19,16 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..convert import planes_to_torch
+from ..api import pixel_device
+from . import arena as A
+from .arena import unpack_planes
+from .batched import _meta_parts, _mode_flags, pack_meta
 from .deblock import blend_recovered, deblock_batch, deblock_bs
 from .intra import intra_batch
 from .mc import combine_mc, make_ref_planes, mc_band_dims, pack_mc_params, \
     run_mc_kernels
 from .residual import residual_frame
-from .tables import MBF_BLEND, MBF_IPCM, MBF_T8x8
+from .tables import MBF_IPCM, MBF_T8x8
 
 I32 = torch.int32
 U8 = torch.uint8
@@ -35,10 +41,7 @@ class TorchBackend:
     RING_START = 8            # ring slots; grows by doubling
 
     def __init__(self, device=None):
-        self.device = torch.device("cuda" if device is None else device)
-        if self.device.type == "cuda" and not torch.cuda.is_available():
-            raise RuntimeError("no CUDA device: pass device='cpu' to decode "
-                               "on the CPU")
+        self.device = pixel_device(device)
         self.ringL = None         # [1, S, 4, ph, pw_b] uint8 (G,B,H,J)
         self.ringC = None         # [1, S, phc, 2*pwc_pad] uint8
         self.ring_map = {}        # DPB slot -> ring index
@@ -80,20 +83,24 @@ class TorchBackend:
             self._keep |= {"pcm_y", "pcm_c"}
         if np.asarray(planes.wp).any() or np.asarray(planes.wp8).any():
             self._keep |= {"wp", "wp8"}
-        # the concealment planes go up only for a frame that blends
-        blend = bool((flags & MBF_BLEND).any())
-        keep = self._keep | ({"mb_errors", "slice_id"} if blend else set())
         ws8 = np.full((6, 64), 16, np.int32)
         ws8[0] = planes.sm8[0]
         ws8[1] = planes.sm8[1]
         smap = np.zeros(32, np.int32)
         for s, i in self.ring_map.items():
             smap[s] = i
-        p = planes_to_torch([planes], keep, self.device, extra={
-            "sm4": np.asarray(planes.sm4, np.int32)[None], "sm8": ws8[None],
-            "slot_map": smap[None]})
-        sm4, sm8, slot_maps = p.pop("sm4"), p.pop("sm8"), p.pop("slot_map")
-        has_t8 = "coef_y8" in keep
+        # the concealment planes go up only for a frame that blends
+        # (plan_layout); the meta block's ring slot is unused here
+        buf, layout, meta_off = A.pack_planes_batch(
+            [planes], planes, keep=self._keep, coef8=False,
+            extra=pack_meta([planes.sm4], [ws8], [smap], [0]),
+            gat_state=None, device=self.device)
+        arena = A.upload(buf, self.device)
+        p = unpack_planes(arena, layout)
+        sm4, sm8, slot_maps, _ = _meta_parts(arena, meta_off)
+        has_t8, has_pcm = _mode_flags(layout)
+        blend = any(k == "mb_errors" and off != -1
+                    for k, _, _, off, _m in layout)
         res_y, res_cb, res_cr = residual_frame(p, sm4, sm8, has_t8)
         if self.ring_map:
             flg, pkl, pkc = pack_mc_params(p, slot_maps, True, mbW, mbH)
@@ -111,7 +118,7 @@ class TorchBackend:
                              device=self.device)
             cr = torch.zeros_like(cb)
         y, cb, cr = intra_batch(y, cb, cr, res_y, res_cb, res_cr, p, mbW,
-                                mbH, has_t8, "pcm_y" in keep)
+                                mbH, has_t8, has_pcm)
         bs_v, bs_h = deblock_bs(p)
         y, cb, cr = deblock_batch(y, cb, cr, p, bs_v, bs_h, mbW, mbH)
         if blend:

@@ -3,11 +3,13 @@ GOPs) run every stage together, so each stage is one batched call (and
 each kernel one launch) for all K.
 
 Port of `ops/batched.py`'s `decode_batch_step` (the `_main_impl` stage
-order), the reference rings (`alloc_ref_rings`, `grow_ref_rings`) and
-the frame digests (`_digest3`, `host_frame_digest`).  The per-lane
-reference store is a persistent device ring [K, S+1, ...] (slot S is a
-write-off lane for non-reference frames), updated IN PLACE each step
-where JAX donated it.
+order), the step's meta block (`pack_meta`, `_meta_parts`), the reference
+rings (`alloc_ref_rings`, `grow_ref_rings`) and the frame digests
+(`_digest3`, `host_frame_digest`).  A step's input is one uploaded arena
+(ops/arena.py) holding every lane's planes and its meta block.  The
+per-lane reference store is a persistent device ring [K, S+1, ...] (slot
+S is a write-off lane for non-reference frames), updated IN PLACE each
+step where JAX donated it.
 """
 
 from __future__ import annotations
@@ -15,6 +17,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .arena import unpack_planes
 from .deblock import deblock_batch, deblock_bs
 from .intra import intra_batch, intra_rounds
 from .mc import combine_mc, make_ref_planes, mc_band_dims, pack_mc_params, \
@@ -101,6 +104,42 @@ def _emit_aux(y8, cb8, cr8, emit, crop):
 
 
 # ---------------------------------------------------------------------------
+# the step's meta block rides the arena upload: scaling matrices, the
+# DPB-slot -> ring map and the destination ring slot, ~2 KB a lane of
+# int32 appended to the packed planes (pack_planes_batch's `extra`)
+
+META_WORDS = 96 + 384 + 32 + 1          # sm4 | sm8 | slot_map | ring
+
+
+def pack_meta(sm4s, sm8s, slot_maps, ring_slots):
+    """Host side: [K, META_WORDS] int32 -> [K, 4*META_WORDS] uint8 rows
+    for pack_planes_batch(extra=...)."""
+    K = len(sm4s)
+    m = np.empty((K, META_WORDS), np.int32)
+    m[:, :96] = np.asarray(sm4s, np.int32).reshape(K, 96)
+    m[:, 96:480] = np.asarray(sm8s, np.int32).reshape(K, 384)
+    m[:, 480:512] = np.asarray(slot_maps, np.int32).reshape(K, 32)
+    m[:, 512] = np.asarray(ring_slots, np.int32)
+    return m.view(np.uint8)
+
+
+def _meta_parts(arenas, meta_off):
+    """Device side: the meta block as int32 views of the arena: sm4
+    [K,6,16], sm8 [K,6,64], slot_map [K,32], ring_slot [K]."""
+    K = arenas.shape[0]
+    m = arenas[:, meta_off:meta_off + 4 * META_WORDS].view(I32)
+    return (m[:, :96].reshape(K, 6, 16), m[:, 96:480].reshape(K, 6, 64),
+            m[:, 480:512], m[:, 512])
+
+
+def _mode_flags(layout):
+    """(has_t8, has_pcm): whether the layout carries the 8x8-transform
+    and PCM planes (left out, the step skips that work)."""
+    present = {k for k, _, _, off, _m in layout if off != -1}
+    return "coef_y8" in present, "pcm_y" in present
+
+
+# ---------------------------------------------------------------------------
 # the step
 
 def _intra_dispatch(y, cb, cr, res_y, res_cb, res_cr, p, intra_mode, mbW,
@@ -120,18 +159,17 @@ def _intra_dispatch(y, cb, cr, res_y, res_cb, res_cr, p, intra_mode, mbW,
     raise ValueError(f"intra_mode={intra_mode!r}")
 
 
-def decode_batch_step(p, meta, refs, *, mbW, mbH, has_t8, has_pcm,
+def decode_batch_step(arenas, refs, *, layout, meta_off, mbW, mbH,
                       intra_mode, mc, emit="flat", crop=(0, 0, 0, 0)):
     """One lockstep step over K frames.
 
-    p          stacked int32 syntax planes [K, ...] (convert.planes_to_torch;
-               planes the step does not use are zeros)
-    meta       dict of int32 tensors: sm4 [K,6,16], sm8 [K,6,64],
-               slot_map [K,32] (DPB slot -> ring index), ring_slot [K]
-               (destination ring slot; S = the write-off slot)
+    arenas     [K, L] uint8 on the device: every lane's packed syntax
+               planes (the shared `layout`, arena.pack_planes_batch) and
+               at meta_off the meta block (pack_meta: sm4 | sm8 |
+               slot_map, DPB slot -> ring index | ring slot, the
+               destination; S = the write-off slot)
     refs       (refL [K,S1,4,ph,pw_b] u8, refC [K,S1,phc,2*pwc_pad] u8),
                updated IN PLACE and returned
-    has_t8 / has_pcm  False skips the 8x8-transform / PCM work
     intra_mode "skip" (no intra or PCM mb in any lane) | "rounds{R}"
                (every lane intra-sparse, depths <= R) | "sheared" (the
                wavefront: intra_batch); see _intra_dispatch
@@ -140,13 +178,15 @@ def decode_batch_step(p, meta, refs, *, mbW, mbH, has_t8, has_pcm,
                words)
     crop       (top, right, bottom, left) for the digest
 
+    The layout's left-out planes skip their work (8x8 transform, PCM).
     Returns (y8, cb8, cr8, aux, refL, refC)."""
     refL, refC = refs
-    K = p["mb_flags"].shape[0]
+    K = arenas.shape[0]
     dev = refL.device
-    slot_maps = meta["slot_map"]
-    res_y, res_cb, res_cr = residual_frame(p, meta["sm4"], meta["sm8"],
-                                           has_t8)
+    has_t8, has_pcm = _mode_flags(layout)
+    p = unpack_planes(arenas, layout)
+    sm4, sm8, slot_maps, ring_slots = _meta_parts(arenas, meta_off)
+    res_y, res_cb, res_cr = residual_frame(p, sm4, sm8, has_t8)
     if mc:
         # both lists: any lane's frame may be a B frame
         flg, pkl, pkc = pack_mc_params(p, slot_maps, True, mbW, mbH)
@@ -168,7 +208,7 @@ def decode_batch_step(p, meta, refs, *, mbW, mbH, has_t8, has_pcm,
     aux = _emit_aux(y8, cb8, cr8, emit, crop)
     newL, newC = make_ref_planes(y8, cb8, cr8)
     lanes = torch.arange(K, device=dev)
-    ring = meta["ring_slot"].long()
+    ring = ring_slots.long()
     refL[lanes, ring] = newL
     refC[lanes, ring] = newC
     return y8, cb8, cr8, aux, refL, refC

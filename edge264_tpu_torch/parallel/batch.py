@@ -23,9 +23,9 @@ import threading
 import numpy as np
 import torch
 
-from ..api import Frame, find_start_code
-from ..convert import planes_to_torch
+from ..api import Frame, find_start_code, pixel_device
 from ..native import EV_FORMAT, EV_FRAME_DONE, EV_UNPIN, NativeDecoder
+from ..ops import arena as A
 from ..ops import batched as B
 from ..ops.intra import intra_round_plane
 from ..ops.tables import MBF_BLEND, MBF_IPCM, MBF_T8x8
@@ -159,10 +159,7 @@ def decode_gops_batched(stream: bytes, *, lanes: int = 4,
     sink="frames": Frames with host numpy planes.
     sink="digest": the frames stay on the device; yields DigestFrames
     carrying the 64-bit device checksum of each frame."""
-    device = torch.device("cuda" if device is None else device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("no CUDA device: pass device='cpu' to decode "
-                           "on the CPU")
+    device = pixel_device(device)
     if sink not in ("frames", "digest"):
         raise ValueError(f"sink={sink!r}")
     if lanes < 1:
@@ -208,6 +205,11 @@ def _decode_group(group, sink, device):
 
     refL = refC = None
     keep = set()            # sticky: conditional planes some frame needed
+    gat_state = {}          # sticky sparse-row buckets (pack_planes_batch)
+    # residual levels go as int8 while every frame fits, on the card as
+    # the JAX package does on its TPU; the first level out of range sends
+    # the group to int16 for good
+    coef8 = device.type == "cuda"
     step = 0
     step_out = []           # per-step host copies of the step's aux output
     # PIPELINE: step N+1's entropy threads start before step N's upload
@@ -294,12 +296,16 @@ def _decode_group(group, sink, device):
         for ln in lane_objs:
             _return_packed(ln, step - 1)
         threads = start_parsing(step + 1)
-        # ONE upload per step: every lane's planes plus the step's meta
-        p = planes_to_torch(planes_list, keep, device, extra={
-            "sm4": np.stack(sm4s), "sm8": np.stack(sm8s),
-            "slot_map": np.stack(slot_maps),
-            "ring_slot": np.asarray(ring_slots, np.int32)})
-        meta = {k: p.pop(k) for k in ("sm4", "sm8", "slot_map", "ring_slot")}
+        # ONE upload per step: every lane's packed planes plus the step's
+        # meta block in one [K, L] arena; dead lanes are zero rows
+        ref_pl = next(pl for pl in planes_list if pl is not None)
+        meta = B.pack_meta(sm4s, sm8s, slot_maps, ring_slots)
+        if coef8 and gat_state.get("coef8_off"):
+            coef8 = False
+        buf, layout, meta_off = A.pack_planes_batch(
+            planes_list, ref_pl, keep=keep, coef8=coef8, extra=meta,
+            gat_state=gat_state, device=device)
+        arenas = A.upload(buf, device)
 
         if refL is None:
             refL, refC = B.alloc_ref_rings(K, S, mbW, mbH, device)
@@ -307,9 +313,8 @@ def _decode_group(group, sink, device):
         crop = (fmt["crop_top"], fmt["crop_right"], fmt["crop_bottom"],
                 fmt["crop_left"])
         y8, cb8, _, aux, refL, refC = B.decode_batch_step(
-            p, meta, (refL, refC), mbW=mbW, mbH=mbH,
-            has_t8="coef_y8" in keep, has_pcm="pcm_y" in keep,
-            intra_mode=intra_mode, mc=step > 0,
+            arenas, (refL, refC), layout=layout, meta_off=meta_off,
+            mbW=mbW, mbH=mbH, intra_mode=intra_mode, mc=step > 0,
             emit="digest" if sink == "digest" else "flat", crop=crop)
         step_out.append((_to_host(aux), y8.shape, cb8.shape))
         for i, ln in enumerate(lane_objs):

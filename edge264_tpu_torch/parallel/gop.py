@@ -1,10 +1,15 @@
-"""GOP splitting: closed GOPs (IDR..IDR) are independent, so a stream is
-split at IDR boundaries for the lockstep driver (port of
-`parallel/gop.py`'s `split_gops` and `_read_ue`)."""
+"""GOP-level parallel decoding: closed GOPs (IDR..IDR) are independent,
+so a stream is split at IDR boundaries, for the lockstep driver or for
+whole decoders running concurrently on worker threads (port of
+`parallel/gop.py`: `split_gops`, `_read_ue`, `decode_annexb_parallel`).
+The C++ front end releases the interpreter lock inside decode_nal, so one
+GOP's host parsing overlaps another's device work."""
 
 from __future__ import annotations
 
-from ..api import find_start_code
+import threading
+
+from ..api import decode_annexb, find_start_code, pixel_device
 
 
 def split_gops(stream: bytes):
@@ -71,3 +76,45 @@ def _read_ue(nal: bytes, byte_off: int) -> int:
     if 2 * lead + 1 > n:
         return 0
     return (bits >> (n - 2 * lead - 1) & ((1 << (lead + 1)) - 1)) - 1
+
+
+def decode_annexb_parallel(stream: bytes, n_workers: int = 4, **kw):
+    """Decode a whole stream with up to `n_workers` GOPs in flight, each
+    through its own `decode_annexb` (keywords such as `device` pass
+    through); returns an iterator of Frames in stream order.  Like
+    decode_annexb, it raises at the call when the device is missing."""
+    kw["device"] = pixel_device(kw.get("device"))
+    if n_workers < 1:
+        raise ValueError(f"n_workers={n_workers}")
+    gops = split_gops(stream)
+    if len(gops) <= 1:
+        return decode_annexb(stream, **kw)
+    return _decode_parallel(gops, n_workers, kw)
+
+
+def _decode_parallel(gops, n_workers, kw):
+    results = [None] * len(gops)
+    errors = [None] * len(gops)
+    sem = threading.Semaphore(n_workers)
+
+    def work(i):
+        with sem:
+            try:
+                results[i] = list(decode_annexb(gops[i], **kw))
+            except Exception as e:   # re-raised on the consuming thread
+                errors[i] = e
+
+    threads = [threading.Thread(target=work, args=(i,))
+               for i in range(len(gops))]
+    for t in threads:
+        t.start()
+    try:
+        for i, t in enumerate(threads):
+            t.join()
+            if errors[i] is not None:
+                raise errors[i]
+            yield from results[i]
+            results[i] = None
+    finally:
+        for t in threads:
+            t.join()

@@ -7,6 +7,8 @@ imports nothing of JAX, so on a machine with a card and no JAX:
         tests/test_torch_kernels_cuda.py
 """
 
+import threading
+
 import numpy as np
 import pytest
 
@@ -15,12 +17,16 @@ torch = pytest.importorskip("torch")
 from chip_smoke import deblock_inputs, intra_case, intra_inputs, \
     mc_inputs  # noqa: E402
 from edge264_tpu_torch import streams  # noqa: E402
-from edge264_tpu_torch.api import decode_annexb  # noqa: E402
+from edge264_tpu_torch.api import decode_annexb, find_start_code  # noqa
+from edge264_tpu_torch.native import EV_FRAME_DONE, NativeDecoder  # noqa
+from edge264_tpu_torch.ops import arena as A  # noqa: E402
 from edge264_tpu_torch.ops import deblock as D  # noqa: E402
 from edge264_tpu_torch.ops import intra as I  # noqa: E402
 from edge264_tpu_torch.ops import mc as M  # noqa: E402
 from edge264_tpu_torch.parallel.batch import \
     decode_gops_batched  # noqa: E402
+from edge264_tpu_torch.parallel.gop import \
+    decode_annexb_parallel  # noqa: E402
 
 pytestmark = pytest.mark.cuda
 
@@ -293,6 +299,99 @@ def test_intra_kernel_sparse(dev):
                         120, 68)
     _assert_equal(want, got)
     _assert_equal(rounds, got)
+
+
+# ---------------------------------------------------------------------------
+# The host arena: unpacked on the card, pinned staging, two threads.
+
+def _arena_steps(data):
+    """Every frame of `data` packed as the lockstep driver packs on the
+    card (int8 levels, a carried gat_state, a dead second lane): (CPU
+    buffer copy, layout) per frame."""
+    nd = NativeDecoder()
+    out, st = [], {}
+    pos = find_start_code(data, 0)
+    while pos < len(data):
+        end = find_start_code(data, pos + 3)
+        _, events = nd.decode_nal(data[pos + 3:end])
+        for e in events:
+            if e[0] == EV_FRAME_DONE:
+                pl = nd.planes(e[1])
+                buf, layout, _ = A.pack_planes_batch(
+                    [pl, None], pl, coef8=True, gat_state=st, device="cpu")
+                out.append((buf.clone(), layout))
+        while (info := nd.get_frame()) is not None:
+            nd.return_frame(info["slot"])
+        pos = end
+    nd.close()
+    return out
+
+
+def test_unpack_on_card_matches_cpu(dev):
+    """unpack_planes on cuda == on the CPU for the same arenas (dense,
+    gathered and base+exception entries, int8 levels); every plane is a
+    contiguous int32 tensor starting on a 16-byte boundary."""
+    data = streams.avcgen().gen_random_cabac_ipb_stream(
+        24, 16, n_gops=1, seed=5, closed=True, gop_pb=2, density=0.1,
+        intra_prob=0.05)
+    steps = _arena_steps(data)
+    kinds = set()
+    for buf, layout in steps:
+        want = A.unpack_planes(buf, layout)
+        got = A.unpack_planes(buf.to(dev), layout)
+        for k, t in got.items():
+            assert t.is_cuda and t.dtype == torch.int32, k
+            assert t.is_contiguous() and t.data_ptr() % 16 == 0, k
+            assert torch.equal(t.cpu(), want[k]), k
+        kinds |= {off if off < 0 else 0 for *_, off, _m in layout}
+    assert {0, -1, -2, -3} <= kinds
+
+
+def test_arena_upload_is_pinned(dev):
+    """On cuda the packer fills pinned staging, taken in turns; upload
+    refuses a pageable buffer."""
+    data = streams.avcgen().gen_random_cabac_ipb_stream(
+        6, 4, n_gops=1, seed=2, closed=True, gop_pb=1)
+    buf, layout = _arena_steps(data)[0]
+    a = A._arena_buf(buf.shape[1], 2, dev)
+    b = A._arena_buf(buf.shape[1], 2, dev)
+    assert a.is_pinned() and b.is_pinned()
+    assert a.data_ptr() != b.data_ptr()
+    a.copy_(buf)
+    assert torch.equal(A.upload(a, dev).cpu(), buf)
+    with pytest.raises(ValueError, match="pinned"):
+        A.upload(buf, dev)
+
+
+def test_two_threads_share_no_staging(dev):
+    """The lockstep path (21 steps, its staging refilled at every step)
+    and decode_annexb_parallel (two worker threads) decode at once on the
+    card, and each gives the CPU's frames."""
+    data = b"".join(streams.avcgen().gen_random_cabac_ipb_stream(
+        8, 6, n_gops=1, seed=s, closed=True, gop_pb=10, density=0.1,
+        max_level=4, intra_prob=0.1) for s in (0, 1))
+    want = list(decode_gops_batched(data, lanes=2, device="cpu"))
+    got = {}
+
+    def run(name, fn):
+        got[name] = list(fn())
+
+    ts = [threading.Thread(target=run, args=(
+              "lockstep", lambda: decode_gops_batched(data, lanes=1))),
+          threading.Thread(target=run, args=(
+              "parallel", lambda: decode_annexb_parallel(data,
+                                                         n_workers=2)))]
+    for t in ts:
+        t.start()
+    for t in ts:
+        t.join(timeout=600)
+        assert not t.is_alive()
+    assert set(got) == {"lockstep", "parallel"}
+    for frames in got.values():
+        assert len(frames) == len(want) == 42
+        for a, b in zip(want, frames):
+            for c in ("y", "cb", "cr"):
+                assert np.array_equal(getattr(a, c), getattr(b, c))
 
 
 def test_kernels_launch_on_their_tensors_device(dev):

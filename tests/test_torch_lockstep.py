@@ -10,12 +10,14 @@ torch = pytest.importorskip("torch")
 
 import __graft_entry__  # noqa: E402
 import edge264_tpu.ops.batched as JB  # noqa: E402
+import edge264_tpu.ops.jaxdec as J  # noqa: E402
 from edge264_tpu.native import NativeDecoder as JNativeDecoder  # noqa: E402
 from edge264_tpu.parallel.batch import \
     decode_gops_batched as jax_decode  # noqa: E402
 from edge264_tpu_torch import streams  # noqa: E402
 from edge264_tpu_torch.api import find_start_code  # noqa: E402
 from edge264_tpu_torch.convert import PLANE_KEYS  # noqa: E402
+from edge264_tpu_torch.ops import arena as A  # noqa: E402
 from edge264_tpu_torch.ops import batched as B  # noqa: E402
 from edge264_tpu_torch.native import EV_FRAME_DONE, NativeDecoder  # noqa
 from edge264_tpu_torch.ops.batched import host_frame_digest  # noqa: E402
@@ -64,30 +66,57 @@ def _recording(module, modes):
     return rec
 
 
+def _recording_pack(module, packs):
+    """Wrap module.pack_planes_batch to append each step's (layout,
+    bytes, meta offset)."""
+    pack = module.pack_planes_batch
+
+    def rec(*a, **kw):
+        buf, layout, meta_off = pack(*a, **kw)
+        packs.append((layout, np.array(buf), meta_off))
+        return buf, layout, meta_off
+    return rec
+
+
 @pytest.fixture(scope="module")
 def uneven():
-    """The uneven IPB stream, JAX's frames and JAX's per-step intra
-    routes."""
+    """The uneven IPB stream, JAX's frames, JAX's per-step intra routes
+    and JAX's per-step arenas."""
     data = _uneven_ipb()
-    modes = []
+    modes, packs = [], []
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(JB, "decode_batch_step", _recording(JB, modes))
+        mp.setattr(J, "pack_planes_batch", _recording_pack(J, packs))
         want = list(jax_decode(data, lanes=2))
-    return data, want, modes
+    return data, want, modes, packs
 
 
 def test_cabac_ipb_uneven_gops_matches_jax(uneven):
-    data, want, _ = uneven
+    data, want, _, _ = uneven
     got = list(decode_gops_batched(data, lanes=2, device="cpu"))
     _assert_same_frames(want, got)
     _assert_digests(got, list(decode_gops_batched(
         data, lanes=2, sink="digest", device="cpu")))
 
 
+def test_step_arenas_match_jax(uneven, monkeypatch):
+    """The port's driver packs, at every step, the JAX driver's layout and
+    bytes (planes, dead-lane rows and meta block) with its carried
+    gat_state."""
+    data, _, _, want = uneven
+    got = []
+    monkeypatch.setattr(A, "pack_planes_batch", _recording_pack(A, got))
+    list(decode_gops_batched(data, lanes=2, device="cpu"))
+    assert len(got) == len(want) > 3
+    for i, ((tl, tb, to), (jl, jb, jo)) in enumerate(zip(got, want)):
+        assert tl == jl and to == jo, i
+        assert np.array_equal(tb, jb), i
+
+
 def test_intra_route_per_step_matches_jax(uneven, monkeypatch):
     """IDR steps take the wavefront, intra-sparse P/B steps the level
     rounds, exactly as the JAX package's lockstep loop chooses."""
-    data, _, want = uneven
+    data, _, want, _ = uneven
     got = []
     monkeypatch.setattr(B, "decode_batch_step", _recording(B, got))
     list(decode_gops_batched(data, lanes=2, device="cpu"))
