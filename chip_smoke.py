@@ -21,7 +21,8 @@ Phases (any failure raises and exits non-zero):
               against the level rounds (intra_rounds) on one intra-sparse
               input, both timed; the intra and deblock kernels held exact
               on an odd geometry (K=3, 3x5 mbs) and at K=16 (1088 row
-              workers).
+              workers), and the intra kernel at the front end's widest
+              row (K=1, 1023x2 mbs).
   3. decode   the main path: a 1080p (120x68 mb) CABAC IPB stream of 2
               closed GOPs (IDR+P+B) through decode_gops_batched(lanes=2)
               on cuda with sink="frames" and sink="digest", and on the CPU
@@ -45,10 +46,24 @@ Phases (any failure raises and exits non-zero):
   6. entry    decode_annexb_parallel (two worker threads) and the
               command-line app (cli.main, golden YUV from phase 3's CPU
               frames) on cuda: byte-identical, PASS.
-  7. report   per-stage device ms (unpack_planes among them) and frames/s
-              of both paths, then the `kernels` JSON line, the card's name
-              and power limit, and the final JSON line.  Details also go
-              to chiprun_out/chip_smoke.json.
+  7. wide     a 4096x512 (256x32 mb) CABAC IPB stream, past the MC
+              kernels' load words, through decode_annexb and the lockstep
+              driver on cuda: every inter step takes mc_frame (the route
+              of each step printed), the intra and deblock kernels run,
+              every frame byte-identical to the CPU path; mc_frame, intra
+              and deblock ms.
+  8. frame    decode_frame and decode_frame_inter (ops/frame.py) on phase
+              3's first IDR + P pair on cuda, against the CPU.
+  9. oracle   a CIF-class stream (22x18 mbs, IDR + 2 x (P+B)) decoded by
+              backend="numpy", the scalar oracle on the host that shares
+              no code with the port's tensor path (its seconds printed):
+              decode_annexb and the lockstep driver on cuda byte-identical
+              to it, and the lockstep driver with a 33-slot ring (every
+              inter step on mc_frame) on cuda and on the CPU too.
+ 10. report   per-stage device ms (unpack_planes among them) and frames/s
+              of both paths, the wide stream's stages, then the `kernels`
+              JSON line, the card's name and power limit, and the final
+              JSON line.  Details also go to chiprun_out/chip_smoke.json.
 """
 
 import contextlib
@@ -59,6 +74,7 @@ import subprocess
 import sys
 import threading
 import time
+import types
 
 import numpy as np
 import torch
@@ -66,15 +82,19 @@ from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
 from edge264_tpu_torch import cli, native, streams
-from edge264_tpu_torch.api import decode_annexb
-from edge264_tpu_torch.convert import ALIGN, planes_to_torch
+from edge264_tpu_torch.api import decode_annexb, find_start_code
+from edge264_tpu_torch.convert import ALIGN, CONDITIONAL, PLANE_KEYS, \
+    planes_to_torch
 from edge264_tpu_torch.kernels import build
+from edge264_tpu_torch.native import EV_FRAME_DONE, NativeDecoder
 from edge264_tpu_torch.ops import arena as A
 from edge264_tpu_torch.ops import backend as BK
 from edge264_tpu_torch.ops import batched as B
 from edge264_tpu_torch.ops import deblock as D
+from edge264_tpu_torch.ops import frame as F
 from edge264_tpu_torch.ops import intra as I
 from edge264_tpu_torch.ops import mc as M
+from edge264_tpu_torch.parallel import batch as TB
 from edge264_tpu_torch.parallel.batch import decode_gops_batched
 from edge264_tpu_torch.parallel.gop import decode_annexb_parallel
 
@@ -187,7 +207,7 @@ def mc_inputs(dev, seed=7, K=K, mbW=MBW, mbH=MBH, S=S, has_b=True, **kw):
     smap = np.zeros((K, 32), np.int32)
     smap[:, :S] = np.arange(S)
     flg, pkl, pkc = M.pack_mc_params(p, torch.as_tensor(smap, device=dev),
-                                     has_b, mbW, mbH)
+                                     has_b, mbW, mbH, S + 1)
     g = torch.Generator(device=dev).manual_seed(seed)
     H, W = 16 * mbH, 16 * mbW
     y = torch.randint(0, 256, (K * (S + 1), H, W), generator=g, device=dev,
@@ -524,19 +544,32 @@ def phase_kernels(dev):
                     I.intra_scan_sheared(*frames, p, w_, h_))
         del p, frames
         log(f"[kernels] deblock and intra exact at K={k_}, {w_}x{h_} mbs")
+    # the front end's widest row, past the former 512-mb work mask
+    p, frames = intra_case(dev, 18, K=1, mbW=1023, mbH=2)
+    check_equal("intra K=1 1023x2",
+                I.intra_batch(*[f.clone() for f in frames[:3]], *frames[3:],
+                              p, 1023, 2),
+                I.intra_scan_sheared(*frames, p, 1023, 2))
+    del p, frames
+    log("[kernels] intra exact at K=1, 1023x2 mbs")
     return out
 
 
 # ---------------------------------------------------------------------------
 # phase 3: the main path
 
-STAGES = ("unpack_planes", "residual_frame", "pack_mc_params",
-          "run_mc_kernels", "combine_mc", "intra_batch", "intra_rounds",
-          "deblock_bs", "deblock_batch", "_emit_aux", "make_ref_planes")
-# the single-frame backend's stages (ops.backend's names)
-STAGES_1 = ("unpack_planes", "residual_frame", "pack_mc_params",
-            "run_mc_kernels", "combine_mc", "intra_batch", "deblock_bs",
-            "deblock_batch", "blend_recovered", "make_ref_planes")
+# (module, stage functions called through it): both paths run the
+# whole-frame routine (ops.frame._frame), whose MC route's stages are
+# called from ops.mc (mc_predict); the step (ops.batched) and the
+# single-frame backend (ops.backend) unpack the arena, emit and ring
+FRAME_STAGES = (F, ("residual_frame", "intra_batch", "intra_rounds",
+                    "deblock_bs", "deblock_batch", "blend_recovered"))
+MC_STAGES = (M, ("pack_mc_params", "run_mc_kernels", "combine_mc",
+                 "mc_frame"))
+STAGES = ((B, ("unpack_planes", "_emit_aux", "make_ref_planes")),
+          FRAME_STAGES, MC_STAGES)
+STAGES_1 = ((F, FRAME_STAGES[1] + ("unpack_planes",)), MC_STAGES,
+            (BK, ("make_ref_planes",)))
 
 
 def dense_int32_bytes(layout, K):
@@ -591,18 +624,18 @@ def log_pack(tag, unit, s):
 
 
 class StageTimer:
-    """Wraps a module's stage functions (ops.batched's or ops.backend's
-    names) with CUDA events on the current stream; device ms per stage,
-    no host sync."""
+    """Wraps stage functions ((module, names) pairs: STAGES, STAGES_1)
+    with CUDA events on the current stream; device ms per stage, no host
+    sync."""
 
-    def __init__(self, module=B, names=STAGES):
-        self.module = module
-        self.events = {n: [] for n in names}
+    def __init__(self, spec=STAGES):
+        self.where = {n: m for m, names in spec for n in names}
+        self.events = {n: [] for n in self.where}
 
     def __enter__(self):
-        self.saved = {n: getattr(self.module, n) for n in self.events}
+        self.saved = {n: getattr(m, n) for n, m in self.where.items()}
         for n, fn in self.saved.items():
-            setattr(self.module, n, self._wrap(n, fn))
+            setattr(self.where[n], n, self._wrap(n, fn))
         return self
 
     def _wrap(self, name, fn):
@@ -618,7 +651,7 @@ class StageTimer:
 
     def __exit__(self, *exc):
         for n, fn in self.saved.items():
-            setattr(self.module, n, fn)
+            setattr(self.where[n], n, fn)
 
     def ms(self):
         torch.cuda.synchronize()
@@ -643,6 +676,33 @@ def read_counts():
     return {n: fn.launches for n, fn in COUNTED.items()}
 
 
+class RouteLog:
+    """Records the route mc.mc_predict takes at each call (mc.mc_route's
+    answer, "kernels" or "frame")."""
+
+    def __enter__(self):
+        self.routes = []
+        self.saved = M.mc_route
+
+        def rec(*a):
+            self.routes.append(self.saved(*a))
+            return self.routes[-1]
+        M.mc_route = rec
+        return self
+
+    def __exit__(self, *exc):
+        M.mc_route = self.saved
+
+
+def check_frames(name, want, got):
+    if len(got) != len(want):
+        raise AssertionError(f"{name}: {len(got)} frames, want {len(want)}")
+    for i, (a, b) in enumerate(zip(want, got)):
+        for c in ("y", "cb", "cr"):
+            if not np.array_equal(getattr(a, c), getattr(b, c)):
+                raise AssertionError(f"{name} frame {i} {c} differs")
+
+
 def phase_decode():
     t0 = time.perf_counter()
     data = streams.avcgen().gen_random_cabac_ipb_stream(
@@ -657,12 +717,15 @@ def phase_decode():
     list(decode_gops_batched(data, lanes=2, sink="digest"))
 
     reset_counts()
-    with PackMeter() as pm:
+    with PackMeter() as pm, RouteLog() as rl:
         t0 = time.perf_counter()
         frames = list(decode_gops_batched(data, lanes=2))
         res["frames_s"] = time.perf_counter() - t0
     res["launches"] = read_counts()
     res["pack"] = pm.summary()
+    res["mc_routes"] = rl.routes
+    if rl.routes != ["kernels", "kernels"]:
+        raise AssertionError(f"1080p lockstep MC routes {rl.routes}")
     if not res["pack"]["pinned"] or res["pack"]["uploads"] != 3:
         raise AssertionError(f"lockstep arena uploads: {res['pack']}")
     log_pack("decode", "step", res["pack"])
@@ -701,7 +764,8 @@ def phase_decode():
             raise AssertionError(f"frame {i}: device digest mismatch")
     res["frames"] = n
     log(f"[decode] {n} frames byte-identical cuda vs cpu; digests match; "
-        f"launches {res['launches']}")
+        f"launches {res['launches']}; MC route of each inter step "
+        f"{res['mc_routes']}")
     return res, data, ref
 
 
@@ -712,12 +776,15 @@ def phase_single(data, ref):
     res = {}
     list(decode_annexb(data))          # warm-up, not counted
     reset_counts()
-    with PackMeter() as pm:
+    with PackMeter() as pm, RouteLog() as rl:
         t0 = time.perf_counter()
         frames = list(decode_annexb(data))
         res["frames_s"] = time.perf_counter() - t0
     res["launches"] = read_counts()
     res["pack"] = pm.summary()
+    res["mc_routes"] = rl.routes
+    if rl.routes != ["kernels"] * (len(ref) - 1):
+        raise AssertionError(f"1080p decode_annexb MC routes {rl.routes}")
     if not res["pack"]["pinned"] or res["pack"]["uploads"] != len(ref):
         raise AssertionError(f"single-frame arena uploads: {res['pack']}")
     log_pack("single", "frame", res["pack"])
@@ -730,12 +797,13 @@ def phase_single(data, ref):
             if not np.array_equal(getattr(a, c), getattr(b, c)):
                 raise AssertionError(f"frame {i} {c}: decode_annexb on "
                                      f"cuda != lockstep cpu")
-    with StageTimer(BK, STAGES_1) as st:
+    with StageTimer(STAGES_1) as st:
         list(decode_annexb(data))
     res["stage_ms"] = st.ms()
     res["frames"] = len(frames)
     log(f"[single] {len(frames)} frames of decode_annexb on cuda "
-        f"byte-identical to the cpu reference; launches {res['launches']}")
+        f"byte-identical to the cpu reference; launches {res['launches']}; "
+        f"MC routes {res['mc_routes']}")
 
     # 5x3 mbs: K * 15 is no multiple of 4, yet every plane of the shared
     # upload buffer must start 16-byte aligned for the kernels' cp.async
@@ -945,9 +1013,183 @@ def phase_entry_points(data, ref):
     return res
 
 
+# ---------------------------------------------------------------------------
+# phases 7-9: frames past the MC words, the whole-frame functions, the
+# independent golden
+
+WIDE_W, WIDE_H = 256, 32      # DCI 4K's width; the height cut to 32 rows
+
+
+def phase_wide():
+    """A 4096-wide CABAC IPB stream (one closed GOP, IDR + P + B, at
+    bench.py's density, max_level and intra_prob) through decode_annexb
+    and the lockstep driver (lanes=1) on cuda: past the MC load words,
+    so every inter step takes mc_frame; intra and deblocking run their
+    kernels.  Every frame byte-identical to the CPU path."""
+    t0 = time.perf_counter()
+    data = streams.avcgen().gen_random_cabac_ipb_stream(
+        WIDE_W, WIDE_H, n_gops=1, seed=44, closed=True, gop_pb=1,
+        density=0.05, max_level=4, intra_prob=0.05)
+    res = {"stream_bytes": len(data), "gen_s": time.perf_counter() - t0,
+           "fits_kernel": M.mc_fits_kernel(WIDE_W, WIDE_H, 9)}
+    if res["fits_kernel"]:
+        raise AssertionError("the wide stream is inside the MC words")
+    t0 = time.perf_counter()
+    ref = list(decode_gops_batched(data, lanes=1, device="cpu"))
+    res["cpu_s"] = time.perf_counter() - t0
+    for name, run, spec in (
+            ("decode_annexb", lambda: decode_annexb(data), STAGES_1),
+            ("lockstep", lambda: decode_gops_batched(data, lanes=1),
+             STAGES)):
+        list(run())                    # warm-up, not counted
+        reset_counts()
+        with RouteLog() as rl, StageTimer(spec) as st:
+            t0 = time.perf_counter()
+            frames = list(run())
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        launches = read_counts()
+        if rl.routes != ["frame", "frame"]:
+            raise AssertionError(f"wide {name}: MC routes {rl.routes}")
+        if launches["mc_luma"] or launches["mc_chroma"] or \
+                not launches["intra"] or not launches["deblock"]:
+            raise AssertionError(f"wide {name}: launches {launches}")
+        check_frames(f"wide {name}", ref, frames)
+        ms = st.ms()
+        res[name] = {"routes": rl.routes, "launches": launches,
+                     "stage_ms": ms, "wall_s": wall, "frames": len(frames)}
+        log(f"[wide] {name} {16 * WIDE_W}x{16 * WIDE_H}: {len(frames)} "
+            f"frames byte-identical to the cpu; MC route of each inter "
+            f"step {rl.routes}; mc_frame {ms['mc_frame']:.2f} ms, intra "
+            f"kernel {ms['intra_batch']:.2f} ms"
+            + (f" (+ level rounds {ms['intra_rounds']:.2f} ms)"
+               if ms["intra_rounds"] else "")
+            + f", deblock kernel {ms['deblock_batch']:.2f} ms over the "
+            f"decode; launches {launches}")
+    return res
+
+
+def decoded_planes(data, n=None):
+    """The completed frames of a stream in decode order, the first n (or
+    all): (a snapshot of the native planes, every key of PLANE_KEYS with
+    mb_w / mb_h, sm4 [6,16], sm8 [6,64] (batched.scaling8), DPB slot,
+    is_ref) each."""
+    nd = NativeDecoder()
+    out = []
+
+    def pump(nal):
+        ret, events = nd.decode_nal(nal)
+        for kind, slot, _a, is_ref, _c, _d in events:
+            if kind == EV_FRAME_DONE:
+                pl = nd.planes(slot)
+                snap = types.SimpleNamespace(
+                    mb_w=pl.mb_w, mb_h=pl.mb_h,
+                    **{k: np.array(getattr(pl, k)) for k in PLANE_KEYS})
+                out.append((snap, np.asarray(pl.sm4, np.int32).copy(),
+                            B.scaling8(pl.sm8), slot, bool(is_ref)))
+        while (info := nd.get_frame()) is not None:
+            nd.return_frame(info["slot"])
+        return ret
+
+    pos = find_start_code(data, 0)
+    while pos < len(data) and (n is None or len(out) < n):
+        end = find_start_code(data, pos + 3)
+        pump(data[pos + 3:end])
+        pos = end
+    while (n is None or len(out) < n) and pump(b"") == 105:
+        pass                          # ENOBUFS: drain the rest
+    nd.close()
+    return out[:n]
+
+
+def phase_frame(data, dev):
+    """The whole-frame functions (ops/frame.py) on phase 3's first IDR
+    and P frame at 1080p: decode_frame, then decode_frame_inter from a
+    one-slot ring of the IDR, on cuda against the CPU."""
+    (p0, sm4a, sm8a, *_), (p1, sm4b, sm8b, *_) = decoded_planes(data, 2)
+    out, res = {}, {}
+    for tag, d in (("cpu", torch.device("cpu")), ("cuda", dev)):
+        def t(a):
+            return torch.as_tensor(a, device=d)[None]
+        reset_counts()
+        with RouteLog() as rl:
+            t0 = time.perf_counter()
+            idr = F.decode_frame(planes_to_torch([p0], CONDITIONAL, d),
+                                 t(sm4a), t(sm8a), MBW, MBH)
+            l4, ch = M.make_ref_planes(*idr)
+            # every DPB slot (the IDR's among them) -> ring index 0
+            smap = torch.zeros((1, 32), dtype=torch.int32, device=d)
+            p = F.decode_frame_inter(planes_to_torch([p1], CONDITIONAL, d),
+                                     t(sm4b), t(sm8b), l4[:, None],
+                                     ch[:, None], smap, MBW, MBH)
+            out[tag] = [a.cpu() for a in idr + p]
+            res[tag + "_s"] = time.perf_counter() - t0
+        res[tag + "_launches"] = read_counts()
+        res[tag + "_routes"] = rl.routes
+    launches = res["cuda_launches"]
+    if res["cuda_routes"] != ["kernels"] or any(
+            launches[k] != n for k, n in (("intra", 2), ("deblock", 2),
+                                          ("mc_luma", 1), ("mc_chroma", 1))):
+        raise AssertionError(f"decode_frame on cuda: routes "
+                             f"{res['cuda_routes']}, launches {launches}")
+    for i, (a, b) in enumerate(zip(out["cpu"], out["cuda"])):
+        if not torch.equal(a, b):
+            raise AssertionError(f"decode_frame plane {i}: cuda != cpu")
+    log(f"[frame] decode_frame (IDR) and decode_frame_inter (P, MC route "
+        f"{res['cuda_routes']}) at {16 * MBW}x{16 * MBH} on cuda "
+        f"byte-identical to the cpu; launches {launches}")
+    return res
+
+
+def phase_oracle():
+    """The independent golden: a CIF-class CABAC IPB stream (22x18 mbs,
+    IDR + 2 x (P + B)) decoded by the scalar numpy oracle on the host
+    (backend="numpy", no code shared with the port's tensor path);
+    decode_annexb and the lockstep driver on cuda byte-identical to it,
+    and the lockstep driver with a 33-slot ring (past the MC words' plane
+    field: every inter step takes mc_frame) on cuda and on the CPU."""
+    data = streams.avcgen().gen_random_cabac_ipb_stream(
+        22, 18, n_gops=1, seed=5, closed=True, gop_pb=2, density=0.05,
+        max_level=4, intra_prob=0.05)
+    t0 = time.perf_counter()
+    gold = list(decode_annexb(data, backend="numpy"))
+    res = {"oracle_s": time.perf_counter() - t0, "frames": len(gold)}
+    if len(gold) != 5:
+        raise AssertionError(f"oracle: {len(gold)} frames, want 5")
+    log(f"[oracle] numpy backend: {len(gold)} frames of 352x288 in "
+        f"{res['oracle_s']:.1f} s on the host")
+    reset_counts()
+    check_frames("oracle: decode_annexb on cuda", gold,
+                 list(decode_annexb(data)))
+    check_frames("oracle: lockstep on cuda", gold,
+                 list(decode_gops_batched(data, lanes=2)))
+    res["launches"] = read_counts()
+    saved = TB.RING_SLOTS
+    TB.RING_SLOTS = 32
+    try:
+        check_frames("oracle: lockstep, 33-slot ring, cpu", gold,
+                     list(decode_gops_batched(data, lanes=1, device="cpu")))
+        reset_counts()
+        with RouteLog() as rl:
+            got = list(decode_gops_batched(data, lanes=1))
+        res["ring33_launches"] = read_counts()
+    finally:
+        TB.RING_SLOTS = saved
+    res["ring33_routes"] = rl.routes
+    if rl.routes != ["frame"] * 4 or res["ring33_launches"]["mc_luma"]:
+        raise AssertionError(f"33-slot ring: routes {rl.routes}, launches "
+                             f"{res['ring33_launches']}")
+    check_frames("oracle: lockstep, 33-slot ring, cuda", gold, got)
+    log(f"[oracle] decode_annexb and lockstep on cuda byte-identical to "
+        f"the oracle (launches {res['launches']}); a 33-slot lockstep ring "
+        f"takes {rl.routes} on cuda, byte-identical on cuda and cpu")
+    return res
+
+
 def main():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: no CUDA device")
+    t_start = time.perf_counter()
     dev = torch.device("cuda")
     kind = torch.cuda.get_device_name(0)
     gpu = card()
@@ -959,6 +1201,9 @@ def main():
     report["single"] = one = phase_single(data, ref)
     report["profile"] = phase_profile(data)
     report["entry_points"] = phase_entry_points(data, ref)
+    report["wide"] = wide = phase_wide()
+    report["frame"] = phase_frame(data, dev)
+    report["oracle"] = phase_oracle()
 
     steps = dec["steps"]
     for n, v in dec["stage_ms"].items():
@@ -966,6 +1211,11 @@ def main():
     for n, v in one["stage_ms"].items():
         log(f"[stage] single-frame {n}: {v / one['frames']:.2f} ms/frame "
             f"({gpu})")
+    for path in ("decode_annexb", "lockstep"):
+        w = wide[path]
+        log(f"[stage] wide {path}: " + ", ".join(
+            f"{n} {v:.2f}" for n, v in w["stage_ms"].items())
+            + f" ms over {w['frames']} frames ({gpu})")
     log(f"[decode] lockstep frames/s: {dec['frames'] / dec['frames_s']:.2f} "
         f"(sink=frames), {dec['frames'] / dec['digest_s']:.2f} "
         f"(sink=digest), cpu reference {dec['frames'] / dec['cpu_s']:.3f} "
@@ -1009,6 +1259,7 @@ def main():
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
         json.dump(dict(report, rows=rows), f, indent=1, default=str)
+    log(f"[report] chip_smoke.py ran {time.perf_counter() - t_start:.0f} s")
     print(json.dumps({"kernels": rows}))
     print(gpu)
     print(json.dumps({"ok": True, "device": {

@@ -5,13 +5,15 @@ reference's edge264_test.c rebuilt).
 Usage:
   python -m edge264_tpu_torch.cli FILE.264 [-y FILE.yuv] [-b] [-m]
                                   [-o FILE.y4m] [--device cuda|cpu]
+                                  [--backend torch|numpy]
   python -m edge264_tpu_torch.cli DIR      # every .264 with a matching .yuv
 
 Compares each decoded frame macroblock by macroblock against golden YUV
 when there is one (MVC second views check FILE.1.yuv), prints a coloured
 per-mb diff map of the luma for each mismatching frame, and with -b
 reports wall and CPU time, frames/s and peak RSS.  The pixel path runs on
-the card unless --device cpu is given.
+the card unless --device cpu is given; --backend numpy decodes with the
+scalar oracle on the host instead (--device is then ignored).
 """
 
 from __future__ import annotations
@@ -56,7 +58,7 @@ def check_frame(i, frame, golden, w, h):
 
 
 def decode_file(path, yuv=None, device=None, bench=False, quiet=False,
-                n_tasks=0, out_y4m=None):
+                n_tasks=0, out_y4m=None, backend="torch"):
     """Decode one file, check it against `yuv` if given, write `out_y4m`
     if given.  True when every frame matched (or there was nothing to
     compare)."""
@@ -64,7 +66,8 @@ def decode_file(path, yuv=None, device=None, bench=False, quiet=False,
         data = fh.read()
     t0 = time.perf_counter()
     c0 = time.process_time()
-    frames = list(decode_annexb(data, device=device, n_tasks=n_tasks))
+    frames = list(decode_annexb(data, device=device, n_tasks=n_tasks,
+                                backend=backend))
     wall = time.perf_counter() - t0
     cpu = time.process_time() - c0
     n_ok = n_total = None
@@ -128,6 +131,9 @@ def main(argv=None):
                     help="print timing + memory stats")
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"),
                     help="where the pixel path runs")
+    ap.add_argument("--backend", default="torch", choices=("torch", "numpy"),
+                    help="pixel backend: the port's (torch) or the scalar "
+                         "oracle on the host (numpy)")
     ap.add_argument("-m", "--multithread", action="store_true",
                     help="frame-task workers, one per hardware thread "
                          "(the reference's -m)")
@@ -144,12 +150,13 @@ def main(argv=None):
             p = os.path.join(args.input, name)
             yuv = os.path.splitext(p)[0] + ".yuv"
             ok &= decode_file(p, yuv if os.path.exists(yuv) else None,
-                              args.device, args.bench, n_tasks=n_tasks)
+                              args.device, args.bench, n_tasks=n_tasks,
+                              backend=args.backend)
         return 0 if ok else 1
     yuv = args.yuv or os.path.splitext(args.input)[0] + ".yuv"
     ok = decode_file(args.input, yuv if os.path.exists(yuv) else None,
                      args.device, args.bench, n_tasks=n_tasks,
-                     out_y4m=args.output)
+                     out_y4m=args.output, backend=args.backend)
     return 0 if ok else 1
 
 

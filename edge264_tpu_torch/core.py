@@ -8,9 +8,13 @@ into per-slot syntax planes and emits events; this core reacts to them:
   EV_UNPIN       drop the slot's frame (and its reference ring entry)
 
 A backend has one method, `reconstruct(planes, slot, store[, is_ref]) ->
-(y, cb, cr)`, and optionally `unpin(slot)`.  The port's backend is
-"torch" (ops/backend.TorchBackend); a backend instance may be passed
-instead.  Frames reach the host only in get_frame.
+(y, cb, cr)`, and optionally `unpin(slot)`.  The port's backends:
+  "torch"  the default: ops/backend.TorchBackend, on `device` (cuda
+           unless the caller passes "cpu")
+  "numpy"  NumpyBackend, the scalar oracle (ops/oracle.py,
+           ops/deblock_oracle.py) on the host; `device` is ignored
+A backend instance may be passed instead.  Frames reach the host only in
+get_frame.
 """
 
 from __future__ import annotations
@@ -23,10 +27,8 @@ import torch
 from .api import Frame
 from .native import EV_FORMAT, EV_FRAME_DONE, EV_UNPIN, NativeDecoder
 
-# the JAX package's other backends, not in the port
-_NOT_PORTED = {"numpy": "the numpy-oracle backend is still to be ported "
-                        "(ROADMAP.md, Queue 1 item 11)",
-               "jax": "the port never runs JAX; the JAX package's own "
+# the JAX package's other backend, not in the port
+_NOT_PORTED = {"jax": "the port never runs JAX; the JAX package's own "
                       "Decoder is that backend (ROADMAP.md, north star)"}
 
 
@@ -55,6 +57,27 @@ class FrameStore:
         self.frames.clear()
 
 
+class NumpyBackend:
+    """Bit-exact scalar model on the host, the golden that shares no code
+    with the port's tensor code (the JAX package's `core.NumpyBackend`).
+    Frames are host numpy arrays; references come from the frame store."""
+
+    def __init__(self):
+        from .ops import deblock_oracle, oracle
+        from .ops.batched import scaling8
+        self.oracle = oracle
+        self.deblock = deblock_oracle
+        self.scaling8 = scaling8
+
+    def reconstruct(self, planes, slot, store):
+        sm = self.oracle.ScalingMatrices(ws4=np.asarray(planes.sm4),
+                                         ws8=self.scaling8(planes.sm8))
+        y, cb, cr = self.oracle.reconstruct_frame(planes, sm, store.frames)
+        self.deblock.deblock_frame(planes, y, cb, cr)
+        self.deblock.blend_recovered_frame(planes, y, cb, cr)
+        return y, cb, cr
+
+
 class DecoderCore:
     def __init__(self, log_cb=None, log_mbs=False, device=None,
                  backend="torch", n_tasks: int = 0):
@@ -63,6 +86,8 @@ class DecoderCore:
         elif backend == "torch":
             from .ops.backend import TorchBackend
             self._backend = TorchBackend(device=device)
+        elif backend == "numpy":
+            self._backend = NumpyBackend()
         elif backend in _NOT_PORTED:
             raise ValueError(f"backend {backend!r} is not ported: "
                              f"{_NOT_PORTED[backend]}")

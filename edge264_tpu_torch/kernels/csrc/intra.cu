@@ -60,7 +60,8 @@ namespace {
 constexpr int MBF_INTRA = 1, MBF_I16x16 = 2, MBF_IPCM = 4, MBF_T8x8 = 8;
 enum { L_NONE, L_I4, L_I8, L_I16, L_PCM };
 enum { C_NONE, C_PRED, C_PCM };
-constexpr int MAX_MBW = 512;  // the per-row work mask's bits
+constexpr int MAX_MBW = 1024;  // the per-row work mask's bits: the
+                               // front end's widest row is 1023 mbs
 constexpr int MASK_WORDS = MAX_MBW / 32;
 
 __constant__ uint8_t c_i4[9][16][3];

@@ -3,15 +3,17 @@
 Port of `jaxdec.JaxBackend` for `core.DecoderCore`.  The DPB's reference
 phase planes (mc.make_ref_planes) live in a persistent device ring
 [1, S, ...] keyed by DPB slot, written in place and grown by doubling;
-only reference frames enter it.  `reconstruct` runs residual -> MC (when
-the ring holds a reference) -> intra -> deblock -> concealment blend, with
-the same kernels as the lockstep step (K = 1), and returns device tensors
-so the host parses the next slice while the device works.  On the card
-every frame goes through the intra and deblock kernels, and every frame
-with a reference through the two MC kernels.  A frame's planes and meta
-block go up as one arena (ops/arena.py) in one copy: dense, int16
-levels, no gathering, the conditional planes sticky for the stream, as
-`JaxBackend` packs them.
+only reference frames enter it.  `reconstruct` runs the whole-frame
+routine (ops/frame.py: residual -> MC when the ring holds a reference ->
+intra -> deblock -> concealment blend) on the frame's arena, with the
+same kernels as the lockstep step (K = 1), and returns device tensors so
+the host parses the next slice while the device works.  On the card every
+frame goes through the intra and deblock kernels, and every frame with a
+reference through the MC route that mc.mc_predict picks for the geometry
+and the ring (the two MC kernels where their load words reach).  A
+frame's planes and meta block go up as one arena (ops/arena.py) in one
+copy: dense, int16 levels, no gathering, the conditional planes sticky
+for the stream, as `JaxBackend` packs them.
 """
 
 from __future__ import annotations
@@ -21,16 +23,11 @@ import torch
 
 from ..api import pixel_device
 from . import arena as A
-from .arena import unpack_planes
-from .batched import _meta_parts, _mode_flags, pack_meta
-from .deblock import blend_recovered, deblock_batch, deblock_bs
-from .intra import intra_batch
-from .mc import combine_mc, make_ref_planes, mc_band_dims, pack_mc_params, \
-    run_mc_kernels
-from .residual import residual_frame
+from .batched import _meta_parts, pack_meta, scaling8
+from .frame import decode_frame_arena, decode_frame_inter_arena
+from .mc import make_ref_planes, mc_band_dims
 from .tables import MBF_IPCM, MBF_T8x8
 
-I32 = torch.int32
 U8 = torch.uint8
 
 
@@ -83,9 +80,6 @@ class TorchBackend:
             self._keep |= {"pcm_y", "pcm_c"}
         if np.asarray(planes.wp).any() or np.asarray(planes.wp8).any():
             self._keep |= {"wp", "wp8"}
-        ws8 = np.full((6, 64), 16, np.int32)
-        ws8[0] = planes.sm8[0]
-        ws8[1] = planes.sm8[1]
         smap = np.zeros(32, np.int32)
         for s, i in self.ring_map.items():
             smap[s] = i
@@ -93,37 +87,18 @@ class TorchBackend:
         # (plan_layout); the meta block's ring slot is unused here
         buf, layout, meta_off = A.pack_planes_batch(
             [planes], planes, keep=self._keep, coef8=False,
-            extra=pack_meta([planes.sm4], [ws8], [smap], [0]),
+            extra=pack_meta([planes.sm4], [scaling8(planes.sm8)], [smap],
+                            [0]),
             gat_state=None, device=self.device)
         arena = A.upload(buf, self.device)
-        p = unpack_planes(arena, layout)
         sm4, sm8, slot_maps, _ = _meta_parts(arena, meta_off)
-        has_t8, has_pcm = _mode_flags(layout)
-        blend = any(k == "mb_errors" and off != -1
-                    for k, _, _, off, _m in layout)
-        res_y, res_cb, res_cr = residual_frame(p, sm4, sm8, has_t8)
         if self.ring_map:
-            flg, pkl, pkc = pack_mc_params(p, slot_maps, True, mbW, mbH)
-            flat = run_mc_kernels(flg, pkl, pkc, self.ringL, self.ringC,
-                                  True, mbW, mbH)
-            pred_y, pred_cb, pred_cr, mask_y, mask_c = combine_mc(
-                p, slot_maps, flat, True)
-            y = torch.where(mask_y, (pred_y + res_y).clamp(0, 255), 0)
-            cb = torch.where(mask_c, (pred_cb + res_cb).clamp(0, 255), 0)
-            cr = torch.where(mask_c, (pred_cr + res_cr).clamp(0, 255), 0)
+            y8, cb8, cr8 = decode_frame_inter_arena(
+                arena, sm4, sm8, self.ringL, self.ringC, slot_maps,
+                layout=layout, mbW=mbW, mbH=mbH)
         else:
-            y = torch.zeros((1, 16 * mbH, 16 * mbW), dtype=I32,
-                            device=self.device)
-            cb = torch.zeros((1, 8 * mbH, 8 * mbW), dtype=I32,
-                             device=self.device)
-            cr = torch.zeros_like(cb)
-        y, cb, cr = intra_batch(y, cb, cr, res_y, res_cb, res_cr, p, mbW,
-                                mbH, has_t8, has_pcm)
-        bs_v, bs_h = deblock_bs(p)
-        y, cb, cr = deblock_batch(y, cb, cr, p, bs_v, bs_h, mbW, mbH)
-        if blend:
-            y, cb, cr = blend_recovered(y, cb, cr, p)
-        y8, cb8, cr8 = y.to(U8), cb.to(U8), cr.to(U8)
+            y8, cb8, cr8 = decode_frame_arena(arena, sm4, sm8, layout=layout,
+                                              mbW=mbW, mbH=mbH)
         if is_ref:
             i = self._ring_reserve(slot, mbW, mbH)
             newL, newC = make_ref_planes(y8, cb8, cr8)

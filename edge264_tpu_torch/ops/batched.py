@@ -18,11 +18,8 @@ import numpy as np
 import torch
 
 from .arena import unpack_planes
-from .deblock import deblock_batch, deblock_bs
-from .intra import intra_batch, intra_rounds
-from .mc import combine_mc, make_ref_planes, mc_band_dims, pack_mc_params, \
-    run_mc_kernels
-from .residual import residual_frame
+from .frame import _frame, _mode_flags
+from .mc import make_ref_planes, mc_band_dims
 
 I32 = torch.int32
 U8 = torch.uint8
@@ -111,6 +108,15 @@ def _emit_aux(y8, cb8, cr8, emit, crop):
 META_WORDS = 96 + 384 + 32 + 1          # sm4 | sm8 | slot_map | ring
 
 
+def scaling8(sm8):
+    """The six 8x8 scaling lists [6, 64] int32 of the meta block and the
+    oracle from the front end's two ([2, 64]: intra and inter Y); the
+    chroma lists, unused in 4:2:0, stay flat (16)."""
+    ws8 = np.full((6, 64), 16, np.int32)
+    ws8[:2] = np.asarray(sm8)[:2]
+    return ws8
+
+
 def pack_meta(sm4s, sm8s, slot_maps, ring_slots):
     """Host side: [K, META_WORDS] int32 -> [K, 4*META_WORDS] uint8 rows
     for pack_planes_batch(extra=...)."""
@@ -132,32 +138,8 @@ def _meta_parts(arenas, meta_off):
             m[:, 480:512], m[:, 512])
 
 
-def _mode_flags(layout):
-    """(has_t8, has_pcm): whether the layout carries the 8x8-transform
-    and PCM planes (left out, the step skips that work)."""
-    present = {k for k, _, _, off, _m in layout if off != -1}
-    return "coef_y8" in present, "pcm_y" in present
-
-
 # ---------------------------------------------------------------------------
 # the step
-
-def _intra_dispatch(y, cb, cr, res_y, res_cb, res_cr, p, intra_mode, mbW,
-                    mbH, has_t8, has_pcm):
-    """The step's intra route: "skip" is the identity, "rounds{R}" the
-    level rounds with the depth plane recomputed from mb_flags on the
-    device, "sheared" the wavefront (the CUDA kernel on the card)."""
-    if intra_mode == "skip":
-        return y, cb, cr
-    if intra_mode.startswith("rounds"):
-        return intra_rounds(y, cb, cr, res_y, res_cb, res_cr, p, None, mbW,
-                            mbH, int(intra_mode[len("rounds"):]), has_t8,
-                            has_pcm)
-    if intra_mode == "sheared":
-        return intra_batch(y, cb, cr, res_y, res_cb, res_cr, p, mbW, mbH,
-                           has_t8, has_pcm)
-    raise ValueError(f"intra_mode={intra_mode!r}")
-
 
 def decode_batch_step(arenas, refs, *, layout, meta_off, mbW, mbH,
                       intra_mode, mc, emit="flat", crop=(0, 0, 0, 0)):
@@ -172,8 +154,10 @@ def decode_batch_step(arenas, refs, *, layout, meta_off, mbW, mbH,
                updated IN PLACE and returned
     intra_mode "skip" (no intra or PCM mb in any lane) | "rounds{R}"
                (every lane intra-sparse, depths <= R) | "sheared" (the
-               wavefront: intra_batch); see _intra_dispatch
-    mc         False for steps without inter prediction (step 0)
+               wavefront: intra_batch); see frame._intra_dispatch
+    mc         False for steps without inter prediction (step 0); else
+               the route of mc.mc_predict: the MC kernels where their
+               load words reach, mc_frame past that
     emit       "flat" ([K, Y+C+C] u8) | "digest" ([K, 2] int64 uint32
                words)
     crop       (top, right, bottom, left) for the digest
@@ -182,32 +166,16 @@ def decode_batch_step(arenas, refs, *, layout, meta_off, mbW, mbH,
     Returns (y8, cb8, cr8, aux, refL, refC)."""
     refL, refC = refs
     K = arenas.shape[0]
-    dev = refL.device
     has_t8, has_pcm = _mode_flags(layout)
     p = unpack_planes(arenas, layout)
     sm4, sm8, slot_maps, ring_slots = _meta_parts(arenas, meta_off)
-    res_y, res_cb, res_cr = residual_frame(p, sm4, sm8, has_t8)
-    if mc:
-        # both lists: any lane's frame may be a B frame
-        flg, pkl, pkc = pack_mc_params(p, slot_maps, True, mbW, mbH)
-        flat = run_mc_kernels(flg, pkl, pkc, refL, refC, True, mbW, mbH)
-        pred_y, pred_cb, pred_cr, mask_y, mask_c = combine_mc(
-            p, slot_maps, flat, True)
-        y = torch.where(mask_y, (pred_y + res_y).clamp(0, 255), 0)
-        cb = torch.where(mask_c, (pred_cb + res_cb).clamp(0, 255), 0)
-        cr = torch.where(mask_c, (pred_cr + res_cr).clamp(0, 255), 0)
-    else:
-        y = torch.zeros((K, 16 * mbH, 16 * mbW), dtype=I32, device=dev)
-        cb = torch.zeros((K, 8 * mbH, 8 * mbW), dtype=I32, device=dev)
-        cr = torch.zeros_like(cb)
-    y, cb, cr = _intra_dispatch(y, cb, cr, res_y, res_cb, res_cr, p,
-                                intra_mode, mbW, mbH, has_t8, has_pcm)
-    bs_v, bs_h = deblock_bs(p)
-    y, cb, cr = deblock_batch(y, cb, cr, p, bs_v, bs_h, mbW, mbH)
-    y8, cb8, cr8 = y.to(U8), cb.to(U8), cr.to(U8)
+    # both lists: any lane's frame may be a B frame
+    mc_in = (refL, refC, slot_maps, True) if mc else None
+    y8, cb8, cr8 = _frame(p, sm4, sm8, mbW, mbH, mc_in, has_t8, has_pcm,
+                          False, intra_mode)
     aux = _emit_aux(y8, cb8, cr8, emit, crop)
     newL, newC = make_ref_planes(y8, cb8, cr8)
-    lanes = torch.arange(K, device=dev)
+    lanes = torch.arange(K, device=refL.device)
     ring = ring_slots.long()
     refL[lanes, ring] = newL
     refC[lanes, ring] = newC

@@ -1,14 +1,21 @@
 """Motion-compensated inter prediction (§8.4.2), batched over K frames.
 
 Ports of `jaxdec.mc_band_dims`, `make_ref_planes`, `_mc_meta`,
-`_mc_combine` and of `pallas_mc.pack_mc_params`, `run_mc_kernels` and
-`combine_mc`.  The per-step path is
+`_mc_combine`, `mc_frame` (with `_mc_luma_list`, `_mc_chroma_list`) and
+of `pallas_mc.pack_mc_params`, `run_mc_kernels` and `combine_mc`.
+`mc_predict` takes one of two routes, chosen by geometry before anything
+launches (`mc_fits_kernel`, the counterpart of `pallas_mc.fits_pallas`):
 
-    pack_mc_params -> run_mc_kernels (mc_luma + mc_chroma) -> combine_mc
+    "kernels": pack_mc_params -> run_mc_kernels (mc_luma + mc_chroma)
+               -> combine_mc
+    "frame":   mc_frame, plain gathers from the ring
 
 `mc_luma` / `mc_chroma` launch `kernels/csrc/mc.cu` on CUDA tensors and
 run their plain versions (`mc_luma_plain` / `mc_chroma_plain`, the same
-per-sample arms in tensor ops) on CPU tensors.
+per-sample arms in tensor ops) on CPU tensors.  The kernels' load words
+hold 12-bit x and y fields and a 7-bit plane field, so a frame more than
+253 mbs across or down, or a ring of 32 slots or more, takes the "frame"
+route on every device, as the JAX package sends it to `jaxdec.mc_frame`.
 
 Reference ring layout (shared with the JAX package): luma [4, ph, pw_b]
 uint8 half-pel planes {0:G, 1:B, 2:H, 3:J}; chroma INTERLEAVED
@@ -185,20 +192,47 @@ def _sel_phase6(phase):
     return tab[phase.long()].unbind(-1)
 
 
+_FIELD_MAX = 0xFFF       # x and y fields of a load word (12 bits each)
+_PLANE_END = 128         # plane field: bits 24..30, below the sign bit
+
+
+def mc_fits_kernel(mbW, mbH, S1):
+    """Whether every load word pack_mc_params can build for this geometry
+    and a ring of S1 slots holds its fields: the largest x and y that the
+    clamps allow (luma x <= pw_b - 5 and y <= ph - 5 after the +1 phase
+    offsets, chroma 2*x <= 2*pwc_pad - 8 and y <= phc - 4) within 12 bits,
+    and S1*4 + 3 below 128 for the luma plane field (4*ring index + plane;
+    one slot of margin over (S1-1)*4 + 3, the same gate as JAX's
+    fits_pallas, S1*4 < 128)."""
+    ph, pw_b, phc, pwc_pad = mc_band_dims(mbW, mbH)
+    return (max(pw_b - 5, 2 * pwc_pad - 8) <= _FIELD_MAX
+            and max(ph - 5, phc - 4) <= _FIELD_MAX
+            and S1 * 4 + 3 < _PLANE_END)
+
+
 def _pack_load_luma(sidx, y, x, p1, oy, ox, used):
     pk = ((sidx * 4 + p1) << 24) | ((y + oy) << 12) | (x + ox)
     return torch.where(used, pk, -1)
 
 
-def pack_mc_params(p, slot_maps, has_b, mbW, mbH):
+def pack_mc_params(p, slot_maps, has_b, mbW, mbH, S1):
     """Build (flags [K,BR,1,BC], pk_luma [K,BR,1,BC*16],
     pk_chroma [K,BR//2,1,2*BC*16]), all int32: the kernels' input
     contract, identical to pallas_mc.pack_mc_params.
+
+    S1 is the slot count of the ring the words index (slot_maps' values
+    are below it).  Raises ValueError when mc_fits_kernel(mbW, mbH, S1)
+    is false: the words would overflow.
 
     BR = 2*mbH 8x8-block rows, BC = padded block columns (W_b/8).
     Per block: 2 lists x 4 quadrants x 2 int32; uniform blocks carry
     their joint 8x8 (4x4 chroma) load words in the q0 slots, and the even
     block of a 16x8 pair its joint 16x8 luma words."""
+    if not mc_fits_kernel(mbW, mbH, S1):
+        raise ValueError(
+            f"pack_mc_params: a {mbW}x{mbH}-mb frame with a {S1}-slot ring "
+            f"is past the load words' 12-bit x/y and 7-bit plane fields; "
+            f"mc_predict sends it to mc_frame")
     ph, pw_b, phc, pwc_pad = mc_band_dims(mbW, mbH)
     W_b = max(-(-16 * mbW // 128) * 128, 128)
     BR, bc = 2 * mbH, 2 * mbW
@@ -465,3 +499,103 @@ def combine_mc(p, slot_maps, flat, has_b):
         yl, ci = flat[2 * l], flat[2 * l + 1]
         preds.append((used, yl, ci[..., 0], ci[..., 1]))
     return _mc_combine(p, preds, has_b)
+
+
+# ---------------------------------------------------------------------------
+# The plain route (jaxdec.mc_frame): per 4x4 cell and list, two 4x4 window
+# gathers from the luma ring and one 3x3 (both components) gather from the
+# chroma ring.  Start indices are clamped as lax.gather's CLIP mode clamps
+# them (each window inside the ring).
+
+def _mc_luma_list(refL, sidx, mvx, mvy, gx4, gy4):
+    """Luma MC for one list over all 4x4 cells of K frames.  refL
+    [K,S1,4,ph,pw_b] uint8 half-pel planes; sidx/mvx/mvy [K,BH,BW] int32;
+    gx4/gy4 [BH,BW] cell top-left full-pel coords.  Returns [K,16H,16W]
+    int32."""
+    K, S1, _, ph, pw_b = refL.shape
+    BH, BW = sidx.shape[1:]
+    dev = refL.device
+    flat = refL.reshape(-1)
+    px = (gx4 + (mvx >> 2) + PADL).clamp(0, pw_b - 6)
+    py = (gy4 + (mvy >> 2) + PADL).clamp(0, ph - 6)
+    sel = _sel_phase6((mvy & 3) * 4 + (mvx & 3))
+    lane = torch.arange(K, device=dev).reshape(K, 1, 1) * (S1 * 4)
+    r4 = torch.arange(4, device=dev)
+    win = (r4[:, None] * pw_b + r4[None, :]).reshape(1, 1, 1, 4, 4)
+    acc = None
+    for pc, oxc, oyc in ((0, 1, 2), (3, 4, 5)):
+        plane = (sidx * 4 + sel[pc]).clamp(0, S1 * 4 - 1)
+        y0 = (py + sel[oyc]).clamp(0, ph - 4)
+        x0 = (px + sel[oxc]).clamp(0, pw_b - 4)
+        base = ((lane + plane).long() * ph + y0) * pw_b + x0
+        v = flat[base[..., None, None] + win].to(I32)
+        acc = v if acc is None else acc + v + 1
+    return (acc >> 1).permute(0, 1, 3, 2, 4).reshape(K, 4 * BH, 4 * BW)
+
+
+def _mc_chroma_list(refC, sidx, mvx, mvy, gx2, gy2):
+    """Chroma MC (bilinear eighth-pel) for one list over all 2x2 chroma
+    cells of K frames.  refC [K,S1,phc,2*pwc_pad] uint8 Cb/Cr-interleaved.
+    Returns ([K,8H,8W] cb, [K,8H,8W] cr) int32."""
+    K, S1, phc, pwc2 = refC.shape
+    BH, BW = sidx.shape[1:]
+    dev = refC.device
+    flat = refC.reshape(-1)
+    px = (gx2 + (mvx >> 3) + PADC).clamp(0, pwc2 // 2 - 4)
+    py = (gy2 + (mvy >> 3) + PADC).clamp(0, phc - 4)
+    slot = (torch.arange(K, device=dev).reshape(K, 1, 1) * S1
+            + sidx.clamp(0, S1 - 1))
+    base = ((slot.long() * phc + py.clamp(0, phc - 3)) * pwc2
+            + (2 * px).clamp(0, pwc2 - 6))
+    r3, c6 = torch.arange(3, device=dev), torch.arange(6, device=dev)
+    win = (r3[:, None] * pwc2 + c6[None, :]).reshape(1, 1, 1, 3, 6)
+    w = flat[base[..., None, None] + win].to(I32)        # [K,BH,BW,3,6]
+    w = w.reshape(K, BH, BW, 3, 3, 2).permute(0, 1, 2, 5, 3, 4)
+    dx = (mvx & 7)[..., None, None, None]
+    dy = (mvy & 7)[..., None, None, None]
+    v = ((8 - dx) * (8 - dy) * w[..., 0:2, 0:2]
+         + dx * (8 - dy) * w[..., 0:2, 1:3]
+         + (8 - dx) * dy * w[..., 1:3, 0:2]
+         + dx * dy * w[..., 1:3, 1:3] + 32) >> 6       # [K,BH,BW,2,2,2]
+    return [v[:, :, :, comp].permute(0, 1, 3, 2, 4)
+            .reshape(K, 2 * BH, 2 * BW) for comp in (0, 1)]
+
+
+def mc_frame(p, refL, refC, slot_maps, has_b=True):
+    """Motion-compensated prediction of K frames by plain gathers:
+    jaxdec.mc_frame batched over the lanes.  refL [K,S1,4,ph,pw_b], refC
+    [K,S1,phc,2*pwc_pad] uint8 rings; slot_maps [K,32] int32 DPB slot ->
+    ring index; has_b False skips list 1.  Returns (pred_y, pred_cb,
+    pred_cr, mask_y, mask_c), as combine_mc does."""
+    BH, BW = p["refslot"].shape[1:3]
+    dev = refL.device
+    gx4 = (torch.arange(BW, dtype=I32, device=dev) * 4)[None, :] \
+        .expand(BH, BW)
+    gy4 = (torch.arange(BH, dtype=I32, device=dev) * 4)[:, None] \
+        .expand(BH, BW)
+    preds = []
+    for l in (0, 1) if has_b else (0,):
+        used, sidx, mvx, mvy = _mc_meta(p, slot_maps, l)
+        y = _mc_luma_list(refL, sidx, mvx, mvy, gx4, gy4)
+        cb, cr = _mc_chroma_list(refC, sidx, mvx, mvy, gx4 >> 1, gy4 >> 1)
+        preds.append((used, y, cb, cr))
+    return _mc_combine(p, preds, has_b)
+
+
+def mc_route(mbW, mbH, S1):
+    """The inter-prediction route of a geometry and a ring of S1 slots:
+    "kernels" (mc.cu through pack_mc_params) or "frame" (mc_frame).
+    mc_predict's one decision, which a caller can watch by wrapping it."""
+    return "kernels" if mc_fits_kernel(mbW, mbH, S1) else "frame"
+
+
+def mc_predict(p, slot_maps, refL, refC, has_b, mbW, mbH):
+    """Inter prediction of K frames from their rings ([K,S1,...]) by the
+    route mc_route picks, before anything launches.  Returns (pred_y,
+    pred_cb, pred_cr, mask_y, mask_c)."""
+    S1 = refL.shape[1]
+    if mc_route(mbW, mbH, S1) == "frame":
+        return mc_frame(p, refL, refC, slot_maps, has_b)
+    flg, pkl, pkc = pack_mc_params(p, slot_maps, has_b, mbW, mbH, S1)
+    flat = run_mc_kernels(flg, pkl, pkc, refL, refC, has_b, mbW, mbH)
+    return combine_mc(p, slot_maps, flat, has_b)

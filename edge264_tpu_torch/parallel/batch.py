@@ -263,11 +263,8 @@ def _decode_group(group, sink, device):
                     keep |= {"wp", "wp8"}
                 planes_list.append(pl)
                 tabs.append(intra_round_plane(flags, mbW, mbH))
-                ws8 = np.full((6, 64), 16, np.int32)
-                ws8[0] = pl.sm8[0]
-                ws8[1] = pl.sm8[1]
                 sm4s.append(np.asarray(pl.sm4, np.int32))
-                sm8s.append(ws8)
+                sm8s.append(B.scaling8(pl.sm8))
                 # only REFERENCE frames occupy ring slots (non-refs are
                 # never read back; they go to the write-off slot S)
                 if is_ref and ln.ring_free:

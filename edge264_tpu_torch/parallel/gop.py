@@ -15,7 +15,14 @@ from ..api import decode_annexb, find_start_code, pixel_device
 def split_gops(stream: bytes):
     """Split an Annex-B stream into per-GOP chunks, each prefixed with
     every parameter set seen so far.  Returns [bytes, ...] (a stream with
-    no mid-stream IDR yields one chunk)."""
+    no mid-stream IDR yields one chunk).
+
+    A parameter set (SPS, PPS, subset SPS) that arrives while a GOP is
+    open, with more of that GOP's slices after it, also goes into that
+    GOP before those slices, so they find it as the serial decoder does.
+    This is a deliberate difference from the JAX package's split_gops,
+    which only prefixes it to the next GOP (its parallel paths then lose
+    a PPS that arrives mid-GOP)."""
     nals = []
     pos = find_start_code(stream, 0)
     while pos < len(stream):
@@ -28,13 +35,20 @@ def split_gops(stream: bytes):
     cur_ps = b""         # parameter-set snapshot when the open GOP began
     pending = b""        # MVC prefix NAL(s) awaiting their slice
     in_idr = False       # currently appending slices of an IDR frame
+    mid_ps = b""         # parameter sets inside the open GOP, held until
+    #                      its next slice
     for nal in nals:
         t = nal[3] & 31
         if t in (7, 8, 15):                 # SPS / PPS / subset SPS
-            # NOT flushed into the open GOP: sets arriving between GOPs
-            # belong to the NEXT one (a later same-id PPS would
-            # otherwise override the open GOP's in its prefix)
+            # into the prefix of the next GOPs, and, once another slice of
+            # the open GOP follows, into that GOP before the slice.  Never
+            # into the open GOP's prefix, where a later same-id PPS would
+            # override the one its earlier slices use; and not into a GOP
+            # that no slice follows in (a format-changing SPS there would
+            # drain and flush that GOP's decoder)
             ps += nal
+            if cur:
+                mid_ps += nal
             continue
         if t == 14:
             # MVC prefix NAL precedes its slice; if that slice opens a
@@ -48,10 +62,13 @@ def split_gops(stream: bytes):
             first_mb = _read_ue(nal, 4)
             if cur and not (in_idr and first_mb != 0):
                 gops.append(cur_ps + cur)
-                cur = b""
+                cur = mid_ps = b""
             in_idr = True
         else:
             in_idr = False
+        if mid_ps and (1 <= t <= 5 or t == 20):    # a slice of the open GOP
+            cur += mid_ps
+            mid_ps = b""
         if not cur:
             cur_ps = ps
         cur += pending + nal
@@ -80,10 +97,12 @@ def _read_ue(nal: bytes, byte_off: int) -> int:
 
 def decode_annexb_parallel(stream: bytes, n_workers: int = 4, **kw):
     """Decode a whole stream with up to `n_workers` GOPs in flight, each
-    through its own `decode_annexb` (keywords such as `device` pass
-    through); returns an iterator of Frames in stream order.  Like
-    decode_annexb, it raises at the call when the device is missing."""
-    kw["device"] = pixel_device(kw.get("device"))
+    through its own `decode_annexb` (keywords such as `device` and
+    `backend` pass through); returns an iterator of Frames in stream
+    order.  Like decode_annexb, it raises at the call when the device is
+    missing; backend="numpy" runs on the host and ignores `device`."""
+    if kw.get("backend", "torch") == "torch":
+        kw["device"] = pixel_device(kw.get("device"))
     if n_workers < 1:
         raise ValueError(f"n_workers={n_workers}")
     gops = split_gops(stream)

@@ -59,3 +59,15 @@ def test_cli_y4m_matches_jax(case, tmp_path):
                                quiet=True)
     assert got.read_bytes() == want.read_bytes()
     assert got.read_bytes().startswith(b"YUV4MPEG2 W96 H64 ")
+
+
+def test_cli_numpy_backend(case, capsys, monkeypatch):
+    """--backend numpy decodes with the scalar oracle on the host: PASS
+    against the JAX package's frames, with no card and --device left at
+    its default."""
+    d, yuv = case
+    (d / "s.yuv").write_bytes(yuv)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    assert cli.main([str(d / "s.264"), "--backend", "numpy", "-b"]) == 0
+    out = capsys.readouterr().out
+    assert "PASS (3 frames, 3/3 bit-exact)" in out and "fps:" in out

@@ -20,6 +20,7 @@ from edge264_tpu_torch.api import Decoder, decode_annexb, \
 from edge264_tpu_torch.ops import backend as BK  # noqa: E402
 
 VIEWS = ("y", "cb", "cr", "y_mvc", "cb_mvc", "cr_mvc")
+KINDS = ("cavlc_intra", "cabac_ipb", "high_pcm", "mvc", "truncated")
 
 
 def _stream(kind):
@@ -41,12 +42,7 @@ def _stream(kind):
         frac=0.5)
 
 
-@pytest.mark.parametrize("kind", ["cavlc_intra", "cabac_ipb", "high_pcm",
-                                  "mvc", "truncated"])
-def test_decode_annexb_matches_jax(kind):
-    data = _stream(kind)
-    want = list(jax_decode_annexb(data, backend="jax"))
-    got = list(decode_annexb(data, device="cpu"))
+def _assert_same_frames(want, got):
     assert len(got) == len(want) > 0
     for i, (a, b) in enumerate(zip(want, got)):
         assert (a.frame_id, a.frame_id_mvc, a.crop_offsets) == \
@@ -60,15 +56,53 @@ def test_decode_annexb_matches_jax(kind):
         assert (a.mb_errors is None) == (b.mb_errors is None), i
         if a.mb_errors is not None:
             assert np.array_equal(a.mb_errors, b.mb_errors), i
+
+
+@pytest.mark.parametrize("kind", KINDS)
+def test_decode_annexb_matches_jax(kind):
+    data = _stream(kind)
+    got = list(decode_annexb(data, device="cpu"))
+    _assert_same_frames(list(jax_decode_annexb(data, backend="jax")), got)
     if kind == "mvc":
         assert all(f.y_mvc is not None for f in got)
     if kind == "truncated":
         assert any(f.mb_errors is not None for f in got)
 
 
+@pytest.mark.parametrize("kind", KINDS)
+def test_numpy_backend_matches_jax_numpy_and_torch(kind):
+    """backend="numpy" (the port's copy of the scalar oracle) == the JAX
+    package's backend="numpy": frames, ids, error planes, crop and MVC
+    views.  On these five classes JAX's two backends agree, and so the
+    port's oracle also equals its torch path on the CPU."""
+    data = _stream(kind)
+    got = list(decode_annexb(data, backend="numpy"))
+    _assert_same_frames(list(jax_decode_annexb(data, backend="numpy")), got)
+    _assert_same_frames(got, list(decode_annexb(data, device="cpu")))
+
+
+def test_numpy_backend_ignores_device(monkeypatch):
+    """The oracle runs on the host: with no card it needs no
+    device="cpu", and Decoder streams its frames as numpy arrays."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    data = _stream("cabac_ipb")
+    want = list(decode_annexb(data, backend="numpy", device="cpu"))
+    with Decoder(backend="numpy") as dec:
+        pos, got = 3, []
+        while True:
+            end = find_start_code(data, pos)
+            res = dec.decode_nal(data[pos:end] if pos < len(data) else None)
+            pos = end + 3
+            while (f := dec.get_frame()) is not None:
+                got.append(f)
+            if res == errno.ENODATA:
+                break
+    _assert_same_frames(want, got)
+
+
 def test_decoder_streaming_interface():
     """The Decoder's streaming calls on the CPU: ENODATA after the drain,
-    borrowed frames returned, the unported backends refused."""
+    borrowed frames returned, the unported backend ("jax") refused."""
     data = _stream("cabac_ipb")
     with Decoder(device="cpu") as dec:
         pos, res, frames = 3, 0, []
@@ -80,9 +114,8 @@ def test_decoder_streaming_interface():
                 frames.append(f)
                 dec.return_frame(f)
     assert sorted(f.frame_id for f in frames) == [0, 1, 2]
-    for name in ("numpy", "jax"):
-        with pytest.raises(ValueError, match="not ported"):
-            Decoder(backend=name, device="cpu")
+    with pytest.raises(ValueError, match="not ported"):
+        Decoder(backend="jax", device="cpu")
 
 
 def test_backend_ring_grows_by_doubling(monkeypatch):

@@ -38,6 +38,8 @@ mods = [m.name for m in pkgutil.walk_packages(edge264_tpu_torch.__path__,
                                               "edge264_tpu_torch.")]
 for m in mods:
     importlib.import_module(m)
+assert {"edge264_tpu_torch.ops." + m for m in ("oracle", "deblock_oracle",
+                                               "frame")} <= set(mods)
 from edge264_tpu_torch import streams
 from edge264_tpu_torch.api import decode_annexb
 from edge264_tpu_torch.parallel.batch import decode_gops_batched
@@ -45,6 +47,7 @@ data = streams.avcgen().gen_random_cabac_ipb_stream(
     2, 2, n_gops=1, seed=1, closed=True, gop_pb=1)
 n = len(list(decode_gops_batched(data, lanes=1, device="cpu")))
 assert len(list(decode_annexb(data, device="cpu"))) == n
+assert len(list(decode_annexb(data, backend="numpy"))) == n
 bad = [m for m in sys.modules if m.split(".")[0] in %r]
 print("OK", len(mods), n, bad)
 """ % (BLOCKED,)

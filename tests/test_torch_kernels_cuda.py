@@ -14,8 +14,8 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-from chip_smoke import deblock_inputs, intra_case, intra_inputs, \
-    mc_inputs  # noqa: E402
+from chip_smoke import RouteLog, deblock_inputs, intra_case, \
+    intra_inputs, mc_inputs  # noqa: E402
 from edge264_tpu_torch import streams  # noqa: E402
 from edge264_tpu_torch.api import decode_annexb, find_start_code  # noqa
 from edge264_tpu_torch.native import EV_FRAME_DONE, NativeDecoder  # noqa
@@ -247,6 +247,63 @@ def test_deblock_kernel_geometries(dev, K, mbW, mbH):
 @pytest.mark.parametrize("K,mbW,mbH", GEOMETRIES)
 def test_intra_kernel_geometries(dev, K, mbW, mbH):
     _assert_equal(*_intra_pair(dev, 30 + mbW, K, mbW, mbH))
+
+
+@pytest.mark.parametrize("K,mbW,mbH", [(1, 1023, 2), (1, 600, 3)])
+def test_intra_kernel_wide_rows(dev, K, mbW, mbH):
+    """Rows past the former 512-mb work mask, up to the front end's
+    widest (1023 mbs): one launch, exact."""
+    n = I.intra_batch.launches
+    _assert_equal(*_intra_pair(dev, 40, K, mbW, mbH))
+    assert I.intra_batch.launches == n + 1
+
+
+def test_intra_kernel_refuses_rows_past_its_mask(dev):
+    p, frames = intra_case(dev, 41, 1.0, 1, 1025, 1)
+    n = I.intra_batch.launches
+    with pytest.raises(RuntimeError, match="intra kernel launch failed"):
+        I.intra_batch(*frames, p, 1025, 1)
+    assert I.intra_batch.launches == n
+
+
+def test_wide_stream_on_card_matches_cpu(dev):
+    """256 mbs across (DCI 4K's width), past the MC load words: both
+    paths take mc_frame on every inter step and the intra and deblock
+    kernels on every step, byte-identical to the CPU."""
+    data = streams.avcgen().gen_random_cabac_ipb_stream(
+        256, 2, n_gops=1, seed=44, closed=True, gop_pb=1, density=0.05,
+        max_level=4, intra_prob=0.05)
+    for run in (decode_annexb,
+                lambda d, **kw: decode_gops_batched(d, lanes=1, **kw)):
+        want = list(run(data, device="cpu"))
+        n = (M.mc_luma.launches, D.deblock_batch.launches)
+        with RouteLog() as rl:
+            got = list(run(data))
+        assert rl.routes == ["frame", "frame"]
+        assert M.mc_luma.launches == n[0]
+        assert D.deblock_batch.launches == n[1] + 3
+        assert len(got) == len(want) == 3
+        for a, b in zip(want, got):
+            for c in ("y", "cb", "cr"):
+                assert np.array_equal(getattr(a, c), getattr(b, c))
+
+
+def test_ring_of_33_slots_on_card_matches_cpu(dev, monkeypatch):
+    """A lockstep ring of 32 + 1 slots is past the load words' plane
+    field: its inter steps take mc_frame on the card too."""
+    from edge264_tpu_torch.parallel import batch as TB
+    monkeypatch.setattr(TB, "RING_SLOTS", 32)
+    data = b"".join(streams.avcgen().gen_random_cabac_ipb_stream(
+        8, 6, n_gops=1, seed=50 + s, closed=True, gop_pb=1, density=0.1,
+        max_level=4, intra_prob=0.1) for s in (0, 1))
+    want = list(decode_gops_batched(data, lanes=2, device="cpu"))
+    with RouteLog() as rl:
+        got = list(decode_gops_batched(data, lanes=2))
+    assert rl.routes == ["frame", "frame"]
+    assert len(got) == len(want) == 6
+    for a, b in zip(want, got):
+        for c in ("y", "cb", "cr"):
+            assert np.array_equal(getattr(a, c), getattr(b, c))
 
 
 @pytest.mark.parametrize("K", [16, 24])

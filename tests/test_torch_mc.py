@@ -3,7 +3,8 @@ parameter packing (pallas_mc.pack_mc_params), the plain luma/chroma MC
 against the Pallas kernels (interpret mode) and the weighted combine
 against pallas_mc.mc_frame_batch and jaxdec.mc_frame -- on _mk-style inputs
 (tests/test_pallas_mc.py): mvs overshooting every frame edge, unused
-cells, uniform and split blocks.  The CUDA kernels against the plain
+cells, uniform and split blocks.  The plain route, mc_frame, against
+jaxdec.mc_frame, and the route predicate at the load words' edge.  The CUDA kernels against the plain
 versions: tests/test_torch_kernels_cuda.py."""
 
 import numpy as np
@@ -108,7 +109,7 @@ def test_pack_and_plain_mc_match_pallas(has_b, geom):
     jp = _jp(planes)
     jpk = PM.pack_mc_params(jp, jnp.asarray(smap), has_b, mbW, mbH)
     p = planes_to_torch(planes, {"wp", "wp8"}, "cpu")
-    pk = M.pack_mc_params(p, torch.as_tensor(smap), has_b, mbW, mbH)
+    pk = M.pack_mc_params(p, torch.as_tensor(smap), has_b, mbW, mbH, S + 1)
     for name, a, b in zip(("flags", "pk_luma", "pk_chroma"), jpk, pk):
         assert b.dtype == torch.int32, name
         assert np.array_equal(np.asarray(a), b.numpy()), name
@@ -155,8 +156,77 @@ def test_weighted_combine_matches_jax():
     tL, tC = _torch_rings(frames)
     sm = torch.as_tensor(smap)
     got = M.combine_mc(p, sm, M.run_mc_kernels(
-        *M.pack_mc_params(p, sm, True, mbW, mbH), tL, tC, True, mbW, mbH),
+        *M.pack_mc_params(p, sm, True, mbW, mbH, 3), tL, tC, True, mbW, mbH),
         True)
     for a, b in zip(ref, got):
         assert np.array_equal(np.asarray(a), b.numpy())
 
+
+
+@pytest.mark.parametrize("has_b", [True, False])
+@pytest.mark.parametrize("geom", [(10, 3, 300), (6, 2, 2000), (256, 1, 300)])
+def test_mc_frame_matches_jax(has_b, geom):
+    """The plain route, mc_frame, against jaxdec.mc_frame (vmapped over
+    the lanes) with one and two lists; 256 mbs across is past the kernels'
+    load words, where mc_predict takes this route."""
+    mbW, mbH, mvmax = geom
+    K, S = 2, 3
+    planes, frames, smap = _mk(mbW, mbH, K, S, seed=mbW + has_b,
+                               mvmax=mvmax)
+    jL, jC = _jax_rings(frames)
+    ref = jax.vmap(lambda pp, rl, rc, sm: J.mc_frame(pp, rl, rc, sm, has_b))(
+        _jp(planes), jL, jC, jnp.asarray(smap))
+    p = planes_to_torch(planes, {"wp", "wp8"}, "cpu")
+    tL, tC = rings_from_numpy(jL, jC, "cpu")
+    got = M.mc_frame(p, tL, tC, torch.as_tensor(smap), has_b)
+    for n, a, b in zip(("pred_y", "pred_cb", "pred_cr", "mask_y", "mask_c"),
+                       ref, got):
+        assert np.array_equal(np.asarray(a), b.numpy()), n
+    if mbW <= 253:       # in reach: the kernels' route gives the same planes
+        sm = torch.as_tensor(smap)
+        kern = M.combine_mc(p, sm, M.run_mc_kernels(
+            *M.pack_mc_params(p, sm, has_b, mbW, mbH, S + 1), tL, tC, has_b,
+            mbW, mbH), has_b)
+        for a, b in zip(got, kern):
+            assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("mbW, mbH, S1, fits", [
+    (253, 2, 9, True),          # the widest frame in reach
+    (254, 2, 9, False),         # one mb wider: x carries into y
+    (2, 253, 9, True),          # the tallest
+    (2, 254, 9, False),         # one mb taller: y carries into the plane
+    (4, 4, 31, True),           # 31 slots: luma planes up to 123
+    (4, 4, 32, False),          # 32 slots: past JAX's gate (S1*4 < 128)
+    (253, 253, 31, True),       # all three edges at once
+    (256, 135, 9, False),       # DCI 4K
+    (1023, 2, 9, False)])       # the front end's widest row
+def test_mc_route_at_the_words_edge(mbW, mbH, S1, fits):
+    """The route predicate against the largest fields pack_mc_params can
+    build: in reach, the words hold them; one mb or one slot more, the
+    predicate sends the geometry to mc_frame and pack_mc_params raises."""
+    assert M.mc_fits_kernel(mbW, mbH, S1) is fits
+    assert M.mc_route(mbW, mbH, S1) == ("kernels" if fits else "frame")
+    if mbW * mbH > 4096:
+        return
+    # every cell on ring index S1-1; list 0's mvs at the far clamps with
+    # the +1 phase offsets (quarter-pel phase 3, 3), list 1's at the near
+    K, BH, BW = 1, 4 * mbH, 4 * mbW
+    p = {"refslot": torch.zeros((K, BH, BW, 2), dtype=torch.int32),
+         "mvs": torch.full((K, BH, BW, 2, 2), (1 << 14) + 3,
+                           dtype=torch.int32)}
+    p["mvs"][..., 1, :] = -(1 << 14)
+    smap = torch.full((K, 32), S1 - 1, dtype=torch.int32)
+    if not fits:
+        with pytest.raises(ValueError, match="mc_frame"):
+            M.pack_mc_params(p, smap, True, mbW, mbH, S1)
+        return
+    _, pkl, pkc = M.pack_mc_params(p, smap, True, mbW, mbH, S1)
+    ph, pw_b, phc, pwc_pad = M.mc_band_dims(mbW, mbH)
+    for pk, xmax, ymax, plane_max in ((pkl, pw_b - 5, ph - 5, S1 * 4 - 1),
+                                      (pkc, 2 * pwc_pad - 8, phc - 4,
+                                       S1 - 1)):
+        w = pk[pk >= 0].long()
+        assert int((w >> 24).max()) <= plane_max < 128
+        assert int(((w >> 12) & 0xFFF).max()) == ymax <= 0xFFF
+        assert int((w & 0xFFF).max()) == xmax <= 0xFFF
