@@ -60,7 +60,19 @@ Phases (any failure raises and exits non-zero):
               decode_annexb and the lockstep driver on cuda byte-identical
               to it, and the lockstep driver with a 33-slot ring (every
               inter step on mc_frame) on cuda and on the CPU too.
- 10. report   per-stage device ms (unpack_planes among them) and frames/s
+ 10. mesh     the multi-device paths: phase 3's stream through
+              decode_gops_batched(lanes=2) over a mesh of two shards on
+              cuda:0 (and over every card when there are more), both
+              sinks, frames byte-identical to phase 3's CPU frames and
+              digests to host_frame_digest, with intra, deblock and both
+              MC kernels launched on every shard; decode_batch_sharded on
+              the stream's two IDR frames over two shards against the CPU
+              (phase 8's IDR, phase 3's frame); decode_stream_multihost in
+              two processes on the card (torch.distributed, gloo on
+              127.0.0.1), one GOP each, their frames in rank order
+              byte-identical to phase 3's.  Seconds and frames/s of each:
+              two shards or two processes on one card measure no scaling.
+ 11. report   per-stage device ms (unpack_planes among them) and frames/s
               of both paths, the wide stream's stages, then the `kernels`
               JSON line, the card's name and power limit, and the final
               JSON line.  Details also go to chiprun_out/chip_smoke.json.
@@ -70,6 +82,7 @@ import contextlib
 import io
 import json
 import os
+import socket
 import subprocess
 import sys
 import threading
@@ -95,10 +108,12 @@ from edge264_tpu_torch.ops import frame as F
 from edge264_tpu_torch.ops import intra as I
 from edge264_tpu_torch.ops import mc as M
 from edge264_tpu_torch.parallel import batch as TB
+from edge264_tpu_torch.parallel import decode_batch_sharded, make_decode_mesh
 from edge264_tpu_torch.parallel.batch import decode_gops_batched
 from edge264_tpu_torch.parallel.gop import decode_annexb_parallel
 
 MBW, MBH, K, S = 120, 68, 2, 8
+REPO = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM device memory
 SCALAR_OPS_PER_S = 67e12         # H100 SXM non-tensor 32-bit rate
 OUT_DIR = "chiprun_out"
@@ -1138,7 +1153,7 @@ def phase_frame(data, dev):
     log(f"[frame] decode_frame (IDR) and decode_frame_inter (P, MC route "
         f"{res['cuda_routes']}) at {16 * MBW}x{16 * MBH} on cuda "
         f"byte-identical to the cpu; launches {launches}")
-    return res
+    return res, out["cpu"][:3]
 
 
 def phase_oracle():
@@ -1186,6 +1201,218 @@ def phase_oracle():
     return res
 
 
+# ---------------------------------------------------------------------------
+# phase 10: the multi-device paths
+
+class ShardCounts:
+    """Wraps batched.decode_batch_step, which decode_batch_step_sharded
+    calls once a shard in shard order: each kernel's launches (read_counts)
+    summed by shard."""
+
+    def __init__(self, n):
+        self.n = n
+
+    def __enter__(self):
+        self.saved = B.decode_batch_step
+        self.per = [dict.fromkeys(COUNTED, 0) for _ in range(self.n)]
+        self.calls = 0
+
+        def rec(*a, **kw):
+            before = read_counts()
+            out = self.saved(*a, **kw)
+            after = read_counts()
+            shard = self.per[self.calls % self.n]
+            self.calls += 1
+            for k in shard:
+                shard[k] += after[k] - before[k]
+            return out
+        B.decode_batch_step = rec
+        return self
+
+    def __exit__(self, *exc):
+        B.decode_batch_step = self.saved
+
+
+# One process of decode_stream_multihost: joins a gloo process group on
+# 127.0.0.1, decodes its share and saves its frames.  Arguments: port,
+# rank, world, lanes, device ("cuda" for the default), stream file, output
+# file.
+MULTIHOST_WORKER = r"""
+import sys
+import numpy as np
+import torch.distributed as dist
+from edge264_tpu_torch.parallel.distributed import decode_stream_multihost
+port, rank, world, lanes, device, stream, out = sys.argv[1:8]
+dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
+                        rank=int(rank), world_size=int(world))
+with open(stream, "rb") as f:
+    data = f.read()
+frames = list(decode_stream_multihost(
+    data, lanes=int(lanes), device=None if device == "cuda" else device))
+dist.barrier()
+dist.destroy_process_group()
+np.savez(out, n=len(frames), **{f"{c}{i}": getattr(fr, c)
+                                for i, fr in enumerate(frames)
+                                for c in ("y", "cb", "cr")})
+"""
+
+
+def run_multihost(data, world, lanes, device, workdir, timeout):
+    """Decode `data` with decode_stream_multihost in `world` processes
+    (torch.distributed on gloo, 127.0.0.1, a free port); each process gets
+    `timeout` seconds, then is killed.  Returns per rank its frames as
+    (y, cb, cr) arrays; raises with the processes' output if one fails."""
+    os.makedirs(workdir, exist_ok=True)
+    stream = os.path.join(workdir, "stream.264")
+    with open(stream, "wb") as f:
+        f.write(data)
+    with socket.socket() as sk:
+        sk.bind(("127.0.0.1", 0))
+        port = sk.getsockname()[1]
+    path = [REPO] + [p for p in os.environ.get("PYTHONPATH", "").split(
+        os.pathsep) if p]
+    env = dict(os.environ, GLOO_SOCKET_IFNAME="lo",
+               PYTHONPATH=os.pathsep.join(path))
+    outs = [os.path.join(workdir, f"rank{r}.npz") for r in range(world)]
+    logs = [open(os.path.join(workdir, f"rank{r}.log"), "w+")
+            for r in range(world)]
+    # LOCAL_RANK / LOCAL_WORLD_SIZE as torchrun sets them: each process's
+    # default device is its own card (all on one card share it)
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", MULTIHOST_WORKER, str(port), str(r),
+         str(world), str(lanes), device, stream, outs[r]], cwd=REPO,
+        env=dict(env, LOCAL_RANK=str(r), LOCAL_WORLD_SIZE=str(world)),
+        stdout=logs[r], stderr=subprocess.STDOUT) for r in range(world)]
+    rcs = []
+    try:
+        for pr in procs:
+            rcs.append(pr.wait(timeout=timeout))
+    except subprocess.TimeoutExpired:
+        rcs.append("timeout")
+    finally:
+        for pr in procs:
+            if pr.poll() is None:
+                pr.kill()
+                pr.wait()
+    text = []
+    for r, lg in enumerate(logs):
+        lg.seek(0)
+        text.append(f"--- rank {r} ---\n{lg.read()[-4000:]}")
+        lg.close()
+    if rcs != [0] * world:
+        raise RuntimeError(f"decode_stream_multihost processes: {rcs}\n"
+                           + "\n".join(text))
+    frames = []
+    for o in outs:
+        with np.load(o) as z:
+            frames.append([tuple(z[f"{c}{i}"] for c in ("y", "cb", "cr"))
+                           for i in range(int(z["n"]))])
+        os.remove(o)
+    os.remove(stream)
+    return frames
+
+
+def phase_mesh(data, ref, idr_cpu, gpu):
+    """The multi-device paths on the card against phase 3's CPU frames:
+    the lockstep driver over meshes, decode_batch_sharded, and
+    decode_stream_multihost in two processes."""
+    res = {}
+    meshes = [("2 shards on cuda:0", make_decode_mesh(["cuda:0", "cuda:0"]))]
+    if torch.cuda.device_count() > 1:
+        meshes.append((f"{torch.cuda.device_count()} cards",
+                       make_decode_mesh()))
+    n_gops = len(ref) // 3
+    for label, mesh in meshes:
+        lanes = max(2, mesh.size)
+        list(decode_gops_batched(data, lanes=lanes, mesh=mesh,
+                                 sink="digest"))       # warm-up, not counted
+        reset_counts()
+        with ShardCounts(mesh.size) as sc:
+            t0 = time.perf_counter()
+            frames = list(decode_gops_batched(data, lanes=lanes, mesh=mesh))
+            secs = time.perf_counter() - t0
+        launches = read_counts()
+        check_frames(f"mesh {label}", ref, frames)
+        # every shard that holds a GOP runs every kernel and the rounds
+        for i, per in enumerate(sc.per[:n_gops]):
+            if not all(per[k] for k in KERNELS + ("intra_rounds",)):
+                raise AssertionError(f"mesh {label}: shard {i} launches "
+                                     f"{per}")
+        t0 = time.perf_counter()
+        digests = list(decode_gops_batched(data, lanes=lanes, mesh=mesh,
+                                           sink="digest"))
+        dsecs = time.perf_counter() - t0
+        if len(digests) != len(ref):
+            raise AssertionError(f"mesh {label}: {len(digests)} digests")
+        for i, (a, d) in enumerate(zip(ref, digests)):
+            if d.digest != B.host_frame_digest(a.y, a.cb, a.cr):
+                raise AssertionError(f"mesh {label} frame {i}: digest")
+        res[label] = {"lanes": lanes, "devices": [str(d) for d in
+                                                  mesh.devices],
+                      "frames_s": secs, "digest_s": dsecs,
+                      "launches": launches, "shard_launches": sc.per}
+        for i, per in enumerate(sc.per):
+            log(f"[mesh] {label}, shard {i} ({mesh.devices[i]}): launches "
+                f"{per}")
+        log(f"[mesh] {label}, lanes={lanes}: {len(frames)} frames "
+            f"byte-identical to the cpu, digests match; {secs:.2f} s, "
+            f"{len(frames) / secs:.2f} frames/s (sink=frames), "
+            f"{len(frames) / dsecs:.2f} (sink=digest) ({gpu}; shards on one "
+            f"card run one after another: no scaling measured)")
+
+    # the frame batch: the stream's two IDR frames, one a shard
+    idrs = [f for f in decoded_planes(data)
+            if (np.asarray(f[0].mb_flags) & 1).all()][:2]
+    if len(idrs) != 2 or not all(np.array_equal(idrs[0][j], idrs[1][j])
+                                 for j in (1, 2)):
+        raise AssertionError("frame batch: want two IDR frames sharing "
+                             "their scaling matrices")
+    p = {k: np.stack([np.asarray(getattr(f[0], k)) for f in idrs])
+         for k in PLANE_KEYS}
+    p["coef_c_dc"] = p["coef_c_dc"].reshape(2, MBH, MBW, 2, 4)
+    reset_counts()
+    t0 = time.perf_counter()
+    got = decode_batch_sharded(p, idrs[0][1], idrs[0][2], MBW, MBH,
+                               make_decode_mesh(["cuda:0", "cuda:0"]))
+    torch.cuda.synchronize()
+    bsecs = time.perf_counter() - t0
+    blaunch = read_counts()
+    if blaunch["intra"] != 2 or blaunch["deblock"] != 2:
+        raise AssertionError(f"frame batch launches {blaunch}")
+    for c, (want, parts) in enumerate(zip(idr_cpu, got)):
+        if not torch.equal(parts[0].cpu(), want):
+            raise AssertionError(f"frame batch shard 0 plane {c}: cuda != "
+                                 "phase 8's cpu")
+    h, w = ref[3].y.shape           # the second GOP's IDR, cropped
+    for c, parts in zip(("y", "cb", "cr"), got):
+        hc, wc = (h, w) if c == "y" else (h // 2, w // 2)
+        if not np.array_equal(parts[1][0, :hc, :wc].cpu().numpy(),
+                              getattr(ref[3], c)):
+            raise AssertionError(f"frame batch shard 1 {c}: cuda != phase "
+                                 "3's cpu frame")
+    res["frame_batch"] = {"s": bsecs, "launches": blaunch}
+    log(f"[mesh] decode_batch_sharded: 2 IDR frames over 2 shards on cuda:0 "
+        f"byte-identical to the cpu; {bsecs:.3f} s, {2 / bsecs:.2f} "
+        f"frames/s ({gpu}; two shards on one card: no scaling measured); "
+        f"launches {blaunch}")
+
+    # two processes, one GOP each
+    t0 = time.perf_counter()
+    per_rank = run_multihost(data, 2, 1, "cuda",
+                             os.path.join(OUT_DIR, "multihost"), 300)
+    msecs = time.perf_counter() - t0
+    check_frames("decode_stream_multihost", ref,
+                 [types.SimpleNamespace(y=y, cb=cb, cr=cr)
+                  for frames in per_rank for y, cb, cr in frames])
+    res["multihost"] = {"s": msecs, "frames": [len(f) for f in per_rank]}
+    log(f"[mesh] decode_stream_multihost, 2 processes on cuda:0: "
+        f"{[len(f) for f in per_rank]} frames by rank, byte-identical to the "
+        f"cpu in rank order; {msecs:.2f} s from spawn to exit, "
+        f"{len(ref) / msecs:.2f} frames/s ({gpu}; two processes on one card: "
+        f"no scaling measured)")
+    return res
+
+
 def main():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: no CUDA device")
@@ -1202,8 +1429,9 @@ def main():
     report["profile"] = phase_profile(data)
     report["entry_points"] = phase_entry_points(data, ref)
     report["wide"] = wide = phase_wide()
-    report["frame"] = phase_frame(data, dev)
+    report["frame"], idr_cpu = phase_frame(data, dev)
     report["oracle"] = phase_oracle()
+    report["mesh"] = phase_mesh(data, ref, idr_cpu, gpu)
 
     steps = dec["steps"]
     for n, v in dec["stage_ms"].items():

@@ -21,8 +21,8 @@ Deliberate differences from the JAX package:
   - the int8 range check runs whenever `coef8` is on (the JAX packer skips
     it when gathering is off and then wraps levels outside [-128, 127]);
   - on `cuda` the host buffer is a view into one of two pinned staging
-    buffers of the calling thread, uploaded with one non-blocking copy
-    (`upload`); on the CPU every step gets a fresh buffer;
+    buffers of the calling thread, uploaded with one non-blocking copy a
+    device (`upload`); on the CPU every step gets a fresh buffer;
   - there are no environment switches: callers choose the path by what
     they pass (a plain planes object packs with numpy, gat_state=None packs
     dense).
@@ -244,9 +244,10 @@ def pack_planes(planes, keep=frozenset(), coef8=False):
 # while the previous step's copy may still read the other.  Each grows to
 # the largest step it has held (layouts change between IDR and P steps,
 # and a pinned allocation is slow), and before it is refilled the host
-# waits on the event recorded after its last upload, so the packer never
-# overwrites bytes still in flight.  Thread-local: decode_annexb_parallel
-# runs whole decoders on worker threads.
+# waits on the events recorded after its uploads (one per copy: the mesh
+# path uploads each shard's rows of one buffer to that shard's device), so
+# the packer never overwrites bytes still in flight.  Thread-local:
+# decode_annexb_parallel runs whole decoders on worker threads.
 _STAGING = threading.local()
 _GROW = 1 << 20          # staging capacity granule (bytes)
 
@@ -254,7 +255,7 @@ _GROW = 1 << 20          # staging capacity granule (bytes)
 class _Staging:
     def __init__(self):
         self.bufs = [None, None]     # pinned uint8 tensors
-        self.done = [None, None]     # CUDA event after each one's upload
+        self.done = [[], []]         # CUDA events after each one's uploads
         self.turn = 0
 
 
@@ -274,9 +275,9 @@ def _arena_buf(n, rows, device):
     st = _staging()
     i = st.turn
     st.turn ^= 1
-    if st.done[i] is not None:
-        st.done[i].synchronize()
-        st.done[i] = None
+    for ev in st.done[i]:
+        ev.synchronize()
+    st.done[i] = []
     need = rows * n
     if st.bufs[i] is None or st.bufs[i].numel() < need:
         st.bufs[i] = None
@@ -286,11 +287,12 @@ def _arena_buf(n, rows, device):
 
 
 def upload(buf, device):
-    """The step's one host-to-device copy of a packed arena (a buffer of
-    pack_planes_batch).  On cuda: a non-blocking copy from pinned memory
-    on the current stream, with the event that guards the staging
-    buffer's next refill; a pageable buffer is refused.  On the CPU the
-    buffer is the arena."""
+    """The host-to-device copy of a packed arena (a buffer of
+    pack_planes_batch, or one shard's block of its rows on the mesh path).
+    On cuda: a non-blocking copy from pinned memory on the device's
+    current stream, with an event that the staging buffer's next refill
+    waits on; a pageable buffer is refused.  On the CPU the buffer is the
+    arena."""
     if device.type != "cuda":
         return buf
     if not buf.is_pinned():
@@ -302,7 +304,7 @@ def upload(buf, device):
                 b.data_ptr() + b.numel():
             ev = torch.cuda.Event()
             ev.record(torch.cuda.current_stream(device))
-            st.done[i] = ev
+            st.done[i].append(ev)
     return out
 
 

@@ -10,7 +10,13 @@ same kernels as the lockstep step (K = 1), and returns device tensors so
 the host parses the next slice while the device works.  On the card every
 frame goes through the intra and deblock kernels, and every frame with a
 reference through the MC route that mc.mc_predict picks for the geometry
-and the ring (the two MC kernels where their load words reach).  A
+and the ring (the two MC kernels where their load words reach).  Intra
+follows `JaxBackend`'s rule: it builds level tables
+(intra.intra_level_tables) only where it has no wavefront kernel (its
+`use_pallas()` false, off the TPU), so on the CPU an intra-sparse frame
+whose levels hold at most 128 mbs takes the level-gather scan
+(intra.intra_scan) and every other frame the sheared scan; on the card
+every frame takes the intra kernel.  A
 frame's planes and meta block go up as one arena (ops/arena.py) in one
 copy: dense, int16 levels, no gathering, the conditional planes sticky
 for the stream, as `JaxBackend` packs them.
@@ -25,6 +31,7 @@ from ..api import pixel_device
 from . import arena as A
 from .batched import _meta_parts, pack_meta, scaling8
 from .frame import decode_frame_arena, decode_frame_inter_arena
+from .intra import intra_level_tables
 from .mc import make_ref_planes, mc_band_dims
 from .tables import MBF_IPCM, MBF_T8x8
 
@@ -92,13 +99,20 @@ class TorchBackend:
             gat_state=None, device=self.device)
         arena = A.upload(buf, self.device)
         sm4, sm8, slot_maps, _ = _meta_parts(arena, meta_off)
+        itab = None
+        if self.device.type == "cpu":
+            itab = intra_level_tables(flags, mbW, mbH)
+            if itab is not None and itab[0].shape[1] > 128:
+                itab = None
+            if itab is not None:
+                itab = tuple(torch.as_tensor(t)[None] for t in itab)
         if self.ring_map:
             y8, cb8, cr8 = decode_frame_inter_arena(
-                arena, sm4, sm8, self.ringL, self.ringC, slot_maps,
+                arena, sm4, sm8, self.ringL, self.ringC, slot_maps, itab,
                 layout=layout, mbW=mbW, mbH=mbH)
         else:
-            y8, cb8, cr8 = decode_frame_arena(arena, sm4, sm8, layout=layout,
-                                              mbW=mbW, mbH=mbH)
+            y8, cb8, cr8 = decode_frame_arena(arena, sm4, sm8, itab,
+                                              layout=layout, mbW=mbW, mbH=mbH)
         if is_ref:
             i = self._ring_reserve(slot, mbW, mbH)
             newL, newC = make_ref_planes(y8, cb8, cr8)

@@ -3,9 +3,10 @@ GOPs) run every stage together, so each stage is one batched call (and
 each kernel one launch) for all K.
 
 Port of `ops/batched.py`'s `decode_batch_step` (the `_main_impl` stage
-order), the step's meta block (`pack_meta`, `_meta_parts`), the reference
-rings (`alloc_ref_rings`, `grow_ref_rings`) and the frame digests
-(`_digest3`, `host_frame_digest`).  A step's input is one uploaded arena
+order) and `decode_batch_step_sharded`, the step's meta block
+(`pack_meta`, `_meta_parts`), the reference rings (`alloc_ref_rings`,
+`grow_ref_rings`) and the frame digests (`_digest3`,
+`host_frame_digest`).  A step's input is one uploaded arena
 (ops/arena.py) holding every lane's planes and its meta block.  The
 per-lane reference store is a persistent device ring [K, S+1, ...] (slot
 S is a write-off lane for non-reference frames), updated IN PLACE each
@@ -13,6 +14,8 @@ step where JAX donated it.
 """
 
 from __future__ import annotations
+
+import contextlib
 
 import numpy as np
 import torch
@@ -180,6 +183,31 @@ def decode_batch_step(arenas, refs, *, layout, meta_off, mbW, mbH,
     refL[lanes, ring] = newL
     refC[lanes, ring] = newC
     return y8, cb8, cr8, aux, refL, refC
+
+
+def decode_batch_step_sharded(arenas, refs, *, layout, meta_off, mbW, mbH,
+                              intra_mode, mc, emit, crop, mesh):
+    """The lockstep step with the lane axis split over `mesh`'s shards
+    (parallel.mesh.DecodeMesh): shard i holds a contiguous block of K/n
+    lanes.  arenas: per shard a [K/n, L] uint8 arena on its device (rows
+    of the step's one packed buffer, so `layout` and `meta_off` are
+    shared); refs: per shard its (refL, refC) rings.  Each shard runs
+    decode_batch_step under its device, on that device's current stream;
+    every shard's work is issued before any is waited on (nothing here
+    synchronises).  GOP lanes are reference-closed, so the shards exchange
+    nothing.  intra_mode and the other arguments are step-wide, as in the
+    JAX package (one program a step).  Shards that name the same device
+    run one after another on its stream, so two persistent wavefront
+    launches, each sized to fill the card, never share it at once.
+    Returns per shard the tuple decode_batch_step returns."""
+    outs = []
+    for dev, arena, ring in zip(mesh.devices, arenas, refs):
+        with (torch.cuda.device(dev) if dev.type == "cuda"
+              else contextlib.nullcontext()):
+            outs.append(decode_batch_step(
+                arena, ring, layout=layout, meta_off=meta_off, mbW=mbW,
+                mbH=mbH, intra_mode=intra_mode, mc=mc, emit=emit, crop=crop))
+    return outs
 
 
 def alloc_ref_rings(K, S, mbW, mbH, device):

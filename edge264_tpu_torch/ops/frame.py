@@ -12,12 +12,19 @@ step (batched.decode_batch_step), runs the one routine `_frame`:
         -> deblock_batch -> [blend_recovered] -> uint8
 
 Every function takes planes, scaling matrices and rings with a leading
-lane dimension K, as the rest of the port does.  Intra and deblocking run
-the CUDA kernels on the card and the plain versions on the CPU; MC takes
-the route `mc.mc_predict` picks by geometry (the JAX functions always use
-`mc_frame`, whose results the kernels' route equals).  The level-gather
-intra tables (`itab`) of the JAX functions are not ported; they always
-take the sheared wavefront here.
+lane dimension K, as the rest of the port does.  Deblocking runs the CUDA
+kernel on the card and the plain version on the CPU; MC takes the route
+`mc.mc_predict` picks by geometry (the JAX functions always use
+`mc_frame`, whose results the kernels' route equals).  Intra takes the
+wavefront (the CUDA kernel on the card, the plain sheared scan on the CPU)
+unless the caller passes level-compressed tables (`itab`, from
+`intra.intra_level_tables`), as in the JAX functions: then the
+level-gather scan `intra.intra_scan` runs, on the CPU only.  The JAX
+package builds `itab` only where it has no wavefront kernel (its
+`use_pallas()` is false, i.e. off the TPU); the port keeps that rule by
+device: tables on the CPU, and on the card always `intra.cu`, so `itab`
+with planes on a card raises `ValueError` (`intra_scan` is plain
+PyTorch, and the card runs no plain version of a kernel).
 """
 
 from __future__ import annotations
@@ -26,7 +33,7 @@ import torch
 
 from .arena import unpack_planes
 from .deblock import blend_recovered, deblock_batch, deblock_bs
-from .intra import intra_batch, intra_rounds
+from .intra import intra_batch, intra_rounds, intra_scan
 from .mc import mc_predict
 from .residual import residual_frame
 
@@ -42,12 +49,20 @@ def _mode_flags(layout):
 
 
 def _intra_dispatch(y, cb, cr, res_y, res_cb, res_cr, p, intra_mode, mbW,
-                    mbH, has_t8, has_pcm):
+                    mbH, has_t8, has_pcm, itab=None):
     """The intra route: "skip" is the identity, "rounds{R}" the level
     rounds with the depth plane recomputed from mb_flags on the device,
+    "levels" the level-gather scan over `itab` (CPU planes only; raises
+    `ValueError` for planes on another device, which take "sheared"),
     "sheared" the wavefront (the CUDA kernel on the card)."""
     if intra_mode == "skip":
         return y, cb, cr
+    if intra_mode == "levels":
+        if y.device.type != "cpu":
+            raise ValueError(f"itab on {y.device}: the level-gather scan "
+                             "runs on the CPU only; on a card pass "
+                             "itab=None (intra.cu)")
+        return intra_scan(y, cb, cr, res_y, res_cb, res_cr, p, itab)
     if intra_mode.startswith("rounds"):
         return intra_rounds(y, cb, cr, res_y, res_cb, res_cr, p, None, mbW,
                             mbH, int(intra_mode[len("rounds"):]), has_t8,
@@ -59,9 +74,10 @@ def _intra_dispatch(y, cb, cr, res_y, res_cb, res_cr, p, intra_mode, mbW,
 
 
 def _frame(p, sm4, sm8, mbW, mbH, mc_in, has_t8, has_pcm, blend,
-           intra_mode="sheared"):
+           intra_mode="sheared", itab=None):
     """mc_in: None, or (stackL, stackC, slot_map, has_b) for frames with
-    inter macroblocks; intra_mode: see _intra_dispatch."""
+    inter macroblocks; intra_mode: see _intra_dispatch (itab: the tables
+    of "levels")."""
     res_y, res_cb, res_cr = residual_frame(p, sm4, sm8, has_t8)
     if mc_in is not None:
         stackL, stackC, slot_map, has_b = mc_in
@@ -76,7 +92,7 @@ def _frame(p, sm4, sm8, mbW, mbH, mc_in, has_t8, has_pcm, blend,
         cb = torch.zeros((K, 8 * mbH, 8 * mbW), dtype=I32, device=dev)
         cr = torch.zeros_like(cb)
     y, cb, cr = _intra_dispatch(y, cb, cr, res_y, res_cb, res_cr, p,
-                                intra_mode, mbW, mbH, has_t8, has_pcm)
+                                intra_mode, mbW, mbH, has_t8, has_pcm, itab)
     bs_v, bs_h = deblock_bs(p)
     y, cb, cr = deblock_batch(y, cb, cr, p, bs_v, bs_h, mbW, mbH)
     if blend:
@@ -84,43 +100,49 @@ def _frame(p, sm4, sm8, mbW, mbH, mc_in, has_t8, has_pcm, blend,
     return y.to(U8), cb.to(U8), cr.to(U8)
 
 
-def decode_frame(p, sm4, sm8, mbW, mbH):
-    """Residuals -> intra wavefront -> deblocking for K frames without
-    inter prediction (decode_frame_jit).  p: {key: [K, ...]} int32
-    planes (every key of convert.PLANE_KEYS), sm4 [K,6,16], sm8 [K,6,64].
-    Returns (y, cb, cr) uint8, mb-aligned."""
-    return _frame(p, sm4, sm8, mbW, mbH, None, True, True, False)
+def _route(itab):
+    return "sheared" if itab is None else "levels"
+
+
+def decode_frame(p, sm4, sm8, mbW, mbH, itab=None):
+    """Residuals -> intra -> deblocking for K frames without inter
+    prediction (decode_frame_jit).  p: {key: [K, ...]} int32 planes (every
+    key of convert.PLANE_KEYS), sm4 [K,6,16], sm8 [K,6,64]; itab None (the
+    wavefront) or level tables (mxs, mys, valid), each [K, Lb, Nb], for
+    intra.intra_scan.  Returns (y, cb, cr) uint8, mb-aligned."""
+    return _frame(p, sm4, sm8, mbW, mbH, None, True, True, False,
+                  _route(itab), itab)
 
 
 def decode_frame_inter(p, sm4, sm8, stackL, stackC, slot_map, mbW, mbH,
-                       has_b=True):
+                       itab=None, has_b=True):
     """The same with motion compensation first (decode_frame_inter_jit):
     stackL [K,S,4,ph,pw_b] / stackC [K,S,phc,2*pwc_pad] uint8 reference
     rings (mc.make_ref_planes), slot_map [K,32] DPB slot -> ring index;
     has_b False predicts from list 0 only."""
     return _frame(p, sm4, sm8, mbW, mbH, (stackL, stackC, slot_map, has_b),
-                  True, True, False)
+                  True, True, False, _route(itab), itab)
 
 
-def _arena_frame(arenas, sm4, sm8, mc_in, layout, mbW, mbH):
+def _arena_frame(arenas, sm4, sm8, mc_in, itab, layout, mbW, mbH):
     has_t8, has_pcm = _mode_flags(layout)
     blend = any(k == "mb_errors" and off != -1
                 for k, _, _, off, _m in layout)
     return _frame(unpack_planes(arenas, layout), sm4, sm8, mbW, mbH, mc_in,
-                  has_t8, has_pcm, blend)
+                  has_t8, has_pcm, blend, _route(itab), itab)
 
 
-def decode_frame_arena(arenas, sm4, sm8, *, layout, mbW, mbH):
+def decode_frame_arena(arenas, sm4, sm8, itab=None, *, layout, mbW, mbH):
     """decode_frame on an uploaded arena ([K, L] uint8, arena.pack_planes
     or pack_planes_batch): the layout's left-out planes skip their work,
     and a layout that carries `mb_errors` blends the recovered mbs after
     deblocking (jaxdec.decode_frame_arena)."""
-    return _arena_frame(arenas, sm4, sm8, None, layout, mbW, mbH)
+    return _arena_frame(arenas, sm4, sm8, None, itab, layout, mbW, mbH)
 
 
-def decode_frame_inter_arena(arenas, sm4, sm8, stackL, stackC, slot_map, *,
-                             layout, mbW, mbH, has_b=True):
+def decode_frame_inter_arena(arenas, sm4, sm8, stackL, stackC, slot_map,
+                             itab=None, *, layout, mbW, mbH, has_b=True):
     """decode_frame_inter on an uploaded arena
     (jaxdec.decode_frame_inter_arena)."""
     return _arena_frame(arenas, sm4, sm8, (stackL, stackC, slot_map, has_b),
-                        layout, mbW, mbH)
+                        itab, layout, mbW, mbH)

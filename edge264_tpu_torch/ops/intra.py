@@ -1,11 +1,15 @@
 """Intra reconstruction of K frames: the plain wavefront scan, the
-sparse-intra level rounds, and the wrapper that launches the CUDA kernel.
+sparse-intra level rounds, the level-gather scan, and the wrapper that
+launches the CUDA kernel.
 
 Ports of `jaxdec.intra_scan_sheared` with its weight matrices
 (`_mk_dir_w`, `_dir_matmul`) and the sheared-layout helpers
 (`_shear_tiles`, `_unshear_tiles`, `_shear_plane`, shared with the
 deblocking scan), of `jaxdec.intra_round_plane` / `jaxdec.intra_rounds`,
-and of `pallas_intra.intra_pallas_batch`'s role: `intra_batch` runs
+of `jaxdec.intra_level_tables` / `jaxdec.intra_scan` (the CPU
+single-frame path's route for intra-sparse frames, an algorithm of its
+own: gathers and masked scatters of each level's mbs), and of
+`pallas_intra.intra_pallas_batch`'s role: `intra_batch` runs
 `kernels/csrc/intra.cu` on CUDA tensors and the plain
 `intra_scan_sheared` on CPU tensors.
 
@@ -162,6 +166,48 @@ def _dc3(aA, aB, sboth, sl, st, shift):
                                                torch.full_like(sl, 128))))
 
 
+def _i8_edges(nb, nbf, aA, aB, aD):
+    """Intra_8x8's reference filter (§8.3.2.2.1) finished: nbf, the
+    3-tap lowpass of the neighbours nb [..., 25] (l[7..0], tl, t[0..15]),
+    gets its corner and edge-end patches in place, then the unfiltered
+    samples back on a side whose edge is unavailable."""
+    l0, t0, t1, l1 = nb[..., 7], nb[..., 9], nb[..., 10], nb[..., 6]
+    tl0 = nb[..., 8]
+    nbf[..., 9] = torch.where(aD > 0, (tl0 + 2 * t0 + t1 + 2) >> 2,
+                              (3 * t0 + t1 + 2) >> 2)
+    nbf[..., 7] = torch.where(aD > 0, (tl0 + 2 * l0 + l1 + 2) >> 2,
+                              (3 * l0 + l1 + 2) >> 2)
+    nbf[..., 8] = torch.where(
+        aD == 0, tl0,
+        _sel3((aA & aB) > 0, (t0 + 2 * tl0 + l0 + 2) >> 2,
+              aB > 0, (3 * tl0 + t0 + 2) >> 2,
+              torch.where(aA > 0, (3 * tl0 + l0 + 2) >> 2, tl0)))
+    nbf = torch.where((aB > 0)[..., None], nbf,
+                      torch.cat([nbf[..., :9], nb[..., 9:]], -1))
+    return torch.where((aA > 0)[..., None], nbf,
+                       torch.cat([nb[..., :8], nbf[..., 8:]], -1))
+
+
+def _chroma_dc(t, l, aA, aB, xx8, yy8):
+    """Chroma DC prediction [..., 64] (raster 8x8, sample x = xx8, y =
+    yy8) from the top / left neighbours t, l [..., 8] (zeros where
+    unavailable): each 4x4 quadrant's own rule."""
+    both, onlyA, onlyB = (aA & aB) > 0, aA > 0, aB > 0
+    ts0, ts1 = t[..., :4].sum(-1, dtype=I32), t[..., 4:].sum(-1, dtype=I32)
+    ls0, ls1 = l[..., :4].sum(-1, dtype=I32), l[..., 4:].sum(-1, dtype=I32)
+    g128 = torch.full_like(ts0, 128)
+    q00 = _sel3(both, (ts0 + ls0 + 4) >> 3, onlyA, (ls0 + 2) >> 2,
+                torch.where(onlyB, (ts0 + 2) >> 2, g128))
+    q01 = _sel3(onlyB, (ts1 + 2) >> 2, onlyA, (ls0 + 2) >> 2, g128)
+    q10 = _sel3(onlyA, (ls1 + 2) >> 2, onlyB, (ts0 + 2) >> 2, g128)
+    q11 = _sel3(both, (ts1 + ls1 + 4) >> 3, onlyA, (ls1 + 2) >> 2,
+                torch.where(onlyB, (ts1 + 2) >> 2, g128))
+    right, bottom = xx8 >= 4, yy8 >= 4
+    return torch.where(
+        bottom, torch.where(right, q11[..., None], q10[..., None]),
+        torch.where(right, q01[..., None], q00[..., None]))
+
+
 def _weights(dev):
     return {k: torch.as_tensor(v.T, dtype=torch.float64, device=dev)
             for k, v in (("4", _W4), ("8", _W8), ("16", _W16),
@@ -257,25 +303,7 @@ def _recon(X, Xc, nbr, nbr_c, ry, rc, m, act, pcm, has_t8, has_pcm, Wt):
             tl = X[..., 7, 7]
         nb = torch.cat([l.flip(-1), tl[..., None], t], -1)
         # §8.3.2.2.1 reference lowpass via matmul + boundary patches
-        nbf = _dense(nb, Wt["f8"]) >> 2
-        l0, t0, t1, l1 = nb[..., 7], nb[..., 9], nb[..., 10], nb[..., 6]
-        tl0 = nb[..., 8]
-        t0f = torch.where(aD > 0, (tl0 + 2 * t0 + t1 + 2) >> 2,
-                          (3 * t0 + t1 + 2) >> 2)
-        l0f = torch.where(aD > 0, (tl0 + 2 * l0 + l1 + 2) >> 2,
-                          (3 * l0 + l1 + 2) >> 2)
-        tlf = torch.where(
-            aD == 0, tl0,
-            _sel3((aA & aB) > 0, (t0 + 2 * tl0 + l0 + 2) >> 2,
-                  aB > 0, (3 * tl0 + t0 + 2) >> 2,
-                  torch.where(aA > 0, (3 * tl0 + l0 + 2) >> 2, tl0)))
-        nbf[..., 9] = t0f
-        nbf[..., 7] = l0f
-        nbf[..., 8] = tlf
-        nbf = torch.where((aB > 0)[..., None], nbf,
-                          torch.cat([nbf[..., :9], nb[..., 9:]], -1))
-        nbf = torch.where((aA > 0)[..., None], nbf,
-                          torch.cat([nb[..., :8], nbf[..., 8:]], -1))
+        nbf = _i8_edges(nb, _dense(nb, Wt["f8"]) >> 2, aA, aB, aD)
         dirp = _dir_matmul(nbf, Wt["8"], mode, 9, 64)
         zero = torch.zeros_like(mode)
         st = torch.where(aB > 0, nbf[..., 9:17].sum(-1, dtype=I32), zero)
@@ -317,31 +345,16 @@ def _recon(X, Xc, nbr, nbr_c, ry, rc, m, act, pcm, has_t8, has_pcm, Wt):
     # ---- chroma --------------------------------------------------------
     ar8 = torch.arange(8, dtype=I32, device=dev)
     xx8, yy8 = ar8.repeat(8), ar8.repeat_interleave(8)
-    right, bottom = xx8 >= 4, yy8 >= 4
     mm = m["ch"]
     mode = mm & 3
     aA, aB = (mm >> 4) & 1, (mm >> 5) & 1
-    both, onlyA, onlyB = (aA & aB) > 0, aA > 0, aB > 0
     out_c = []
     for ci, (img, (Tc, Lc, TLc), res_c) in enumerate(zip(Xc, nbr_c, rc)):
         t = torch.where((aB > 0)[..., None], Tc, 0)
         l = torch.where((aA > 0)[..., None], Lc, 0)
         nb = torch.cat([l.flip(-1), TLc[..., None], t], -1)
         dirp = _dir_matmul(nb, Wt["ch"], (mode - 1).clamp(0, 1), 2, 64)
-        ts0, ts1 = t[..., :4].sum(-1, dtype=I32), \
-            t[..., 4:].sum(-1, dtype=I32)
-        ls0, ls1 = l[..., :4].sum(-1, dtype=I32), \
-            l[..., 4:].sum(-1, dtype=I32)
-        g128 = torch.full_like(ts0, 128)
-        q00 = _sel3(both, (ts0 + ls0 + 4) >> 3, onlyA, (ls0 + 2) >> 2,
-                    torch.where(onlyB, (ts0 + 2) >> 2, g128))
-        q01 = _sel3(onlyB, (ts1 + 2) >> 2, onlyA, (ls0 + 2) >> 2, g128)
-        q10 = _sel3(onlyA, (ls1 + 2) >> 2, onlyB, (ts0 + 2) >> 2, g128)
-        q11 = _sel3(both, (ts1 + ls1 + 4) >> 3, onlyA, (ls1 + 2) >> 2,
-                    torch.where(onlyB, (ts1 + 2) >> 2, g128))
-        dcmap = torch.where(
-            bottom, torch.where(right, q11[..., None], q10[..., None]),
-            torch.where(right, q01[..., None], q00[..., None]))
+        dcmap = _chroma_dc(t, l, aA, aB, xx8, yy8)
         hs = _plane_sums(nb, _CH_HP, _CH_HM, 4)
         vs = _plane_sums(nb, _CH_VP, _CH_VM, 4)
         a = 16 * (nb[..., 0] + nb[..., 16])
@@ -425,6 +438,28 @@ def intra_scan_sheared(y, cb, cr, res_y, res_cb, res_cr, p, mbW, mbH,
 _ROUND_BUCKETS = (2, 4, 8)
 
 
+def _intra_depth(flags, passes):
+    """Host-side dependency depth of every mb: 0 for inter, 1 for an intra
+    mb with no intra causal neighbour (left, top, top-left, top-right),
+    else 1 + the deepest intra neighbour's depth; found by fixpoint
+    relaxation.  None when more than 40% of the mbs are intra, or when
+    `passes` passes do not converge (a chain deeper than `passes`)."""
+    M = (flags & MBF_INTRA) > 0
+    if M.mean() > 0.4:
+        return None
+    lvl = M.astype(np.int32)
+    for _ in range(passes):
+        left = np.pad(lvl, ((0, 0), (1, 0)))[:, :-1]
+        top = np.pad(lvl, ((1, 0), (0, 0)))[:-1, :]
+        tl = np.pad(lvl, ((1, 0), (1, 0)))[:-1, :-1]
+        tr = np.pad(lvl, ((1, 0), (0, 1)))[:-1, 1:]
+        new = np.where(M, 1 + np.maximum.reduce([left, top, tl, tr]), 0)
+        if np.array_equal(new, lvl):
+            return lvl
+        lvl = new
+    return None
+
+
 def intra_round_plane(flags, mbW, mbH):
     """Host-side dependency-depth plane for intra_rounds().
 
@@ -437,20 +472,8 @@ def intra_round_plane(flags, mbW, mbH):
     _ROUND_BUCKETS covering the max depth, or None when the frame is too
     intra-dense (more than 40% intra, or a chain deeper than the last
     bucket): the caller then uses the wavefront instead."""
-    M = (flags & MBF_INTRA) > 0
-    if M.mean() > 0.4:
-        return None
-    lvl = M.astype(np.int32)
-    for _ in range(_ROUND_BUCKETS[-1] + 1):
-        left = np.pad(lvl, ((0, 0), (1, 0)))[:, :-1]
-        top = np.pad(lvl, ((1, 0), (0, 0)))[:-1, :]
-        tl = np.pad(lvl, ((1, 0), (1, 0)))[:-1, :-1]
-        tr = np.pad(lvl, ((1, 0), (0, 1)))[:-1, 1:]
-        new = np.where(M, 1 + np.maximum.reduce([left, top, tl, tr]), 0)
-        if np.array_equal(new, lvl):
-            break
-        lvl = new
-    else:
+    lvl = _intra_depth(flags, _ROUND_BUCKETS[-1] + 1)
+    if lvl is None:
         return None
     R = next((b for b in _ROUND_BUCKETS if int(lvl.max()) <= b), None)
     if R is None:
@@ -543,6 +566,231 @@ def intra_rounds(y, cb, cr, res_y, res_cb, res_cr, p, lvl, mbW, mbH,
 
 
 intra_rounds.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# Sparse intra: the level-gather scan (the JAX package's CPU single-frame
+# route)
+
+_LEVEL_BUCKETS = (2, 4, 8, 16)
+_ENTRY_BUCKETS = (128, 512, 2048, 8160)
+
+
+def intra_level_tables(flags, mbW, mbH):
+    """Host-side level compression of the intra wavefront for intra_scan.
+
+    The dependency depths of intra_round_plane become per-level lists of
+    the intra mbs' coordinates, padded to a fixed menu of (levels,
+    entries) buckets: (mxs, mys, valid) int32 / int32 / bool [Lb, Nb],
+    padded entries at mb (0, 0) with valid False.  None when more than 40%
+    of the mbs are intra, or the chains are deeper than 16, or a level
+    holds more than 8160 mbs.  An exact copy of jaxdec.intra_level_tables,
+    with the same buckets."""
+    lvl = _intra_depth(flags, 17)
+    if lvl is None:
+        return None
+    lmax = int(lvl.max())
+    if lmax == 0:
+        mxs = np.zeros((1, 1), np.int32)
+        return mxs, mxs.copy(), np.zeros((1, 1), bool)
+    per = [np.nonzero(lvl == lv) for lv in range(1, lmax + 1)]
+    nmax = max(len(ys) for ys, xs in per)
+    Lb = next((b for b in _LEVEL_BUCKETS if lmax <= b), None)
+    Nb = next((b for b in _ENTRY_BUCKETS if nmax <= b), None)
+    if Lb is None or Nb is None:
+        return None
+    mxs = np.zeros((Lb, Nb), np.int32)
+    mys = np.zeros((Lb, Nb), np.int32)
+    valid = np.zeros((Lb, Nb), bool)
+    for i, (ys, xs) in enumerate(per):
+        mxs[i, :len(xs)] = xs
+        mys[i, :len(ys)] = ys
+        valid[i, :len(ys)] = True
+    return mxs, mys, valid
+
+
+def _gather2(img, rows, cols):
+    """img[k, rows, cols] for img [K, H, W], with rows / cols [K, ...]
+    broadcast together and clipped to the image (values at clipped
+    indices are masked by the callers)."""
+    K, H, W = img.shape
+    k = torch.arange(K, device=img.device).view((K,) + (1,) * (rows.ndim - 1))
+    return img[k, rows.clamp(0, H - 1), cols.clamp(0, W - 1)]
+
+
+def _scatter2(img, rows, cols, vals, active):
+    """img[k, rows, cols] = vals in place where active [K, N] (rows, cols
+    and vals [K, N, P]).  JAX sends inactive entries out of bounds and
+    drops them; here they are masked out before the scatter, so a padded
+    entry (at mb (0, 0)) never overwrites a real mb there."""
+    rows, cols = torch.broadcast_tensors(rows, cols)
+    act = active[..., None].expand_as(rows)
+    k = torch.arange(img.shape[0], device=img.device)[:, None, None] \
+        .expand_as(rows)
+    img[k[act], rows[act], cols[act]] = vals.expand_as(rows)[act]
+
+
+def _tap3(nb, idx):
+    """(a + 2b + c + 2) >> 2 through per-entry index triples: nb [K, N, T],
+    idx [K, N, P, 3] -> [K, N, P]."""
+    a, b, c = (torch.gather(nb, 2, idx[..., j]) for j in range(3))
+    return (a + 2 * b + c + 2) >> 2
+
+
+def intra_scan(y, cb, cr, res_y, res_cb, res_cr, p, tables):
+    """Reconstruct the intra mbs of K frames level by level from
+    level-compressed tables (intra_level_tables): a plain port of
+    jaxdec.intra_scan, gathers and masked scatters of each level's mbs,
+    with a leading lane dimension K.
+
+    y [K,16mbH,16mbW], cb / cr [K,8mbH,8mbW] int32 hold the inter
+    prediction (zeros elsewhere); res_* the residuals; p the [K, ...]
+    plane dict; tables (mxs, mys, valid), each [K, Lb, Nb].  Returns new
+    (y, cb, cr).  Integer arithmetic throughout, so exact; the
+    whole-frame functions run it on CPU planes only (ops/frame.py: on a
+    card intra takes intra.cu).  Modes outside a table are clipped into it, as JAX's gathers clip."""
+    dev = y.device
+    y, cb, cr = y.clone(), cb.clone(), cr.clone()
+    K = y.shape[0]
+    kk = torch.arange(K, device=dev)[:, None]
+    mxs_t, mys_t, valid_t = (torch.as_tensor(t, device=dev) for t in tables)
+    i4idx, i8idx, i16idx, chidx, fidx = (
+        torch.as_tensor(t, dtype=torch.long, device=dev)
+        for t in (I4_IDX, I8_IDX, I16_DIR_IDX, CH_DIR_IDX, I8_FILT_IDX))
+    r4, r8, r16 = (torch.arange(n, dtype=I32, device=dev) for n in (4, 8, 16))
+    ar16 = torch.arange(16 * 16, dtype=I32, device=dev)
+    xx16, yy16 = ar16 % 16, ar16 // 16          # raster order of a 16x16
+    xx8, yy8 = (ar16[:64] % 8, ar16[:64] // 8)
+    blk_y, blk_x = ar16[:16] // 4, ar16[:16] % 4
+
+    def pl(name, r, c):
+        return p[name][kk, r, c]
+
+    for lv in range(mxs_t.shape[1]):
+        mxs, mys = mxs_t[:, lv].long(), mys_t[:, lv].long()
+        val = valid_t[:, lv].bool()
+        flags = pl("mb_flags", mys, mxs)
+        is_pcm = (flags & MBF_IPCM) > 0
+        is_i16 = (flags & MBF_I16x16) > 0
+        is_t8 = (flags & MBF_T8x8) > 0
+        is_intra = (flags & MBF_INTRA) > 0
+        is_i4 = is_intra & ~is_i16 & ~is_pcm & ~is_t8
+        is_i8 = is_intra & is_t8 & ~is_pcm
+
+        # ---- I4x4 luma: 16 quad-order substeps -------------------------
+        for b in range(16):
+            bx, by = int(BLK4_X[b]), int(BLK4_Y[b])
+            px0, py0 = mxs * 16 + bx * 4, mys * 16 + by * 4
+            m = pl("i4_modes", mys * 4 + by, mxs * 4 + bx)
+            mode = m & 15
+            aA, aB, aC = (m >> 4) & 1, (m >> 5) & 1, (m >> 6) & 1
+            t = _gather2(y, (py0 - 1)[..., None], px0[..., None] + r8)
+            t = torch.cat([t[..., :4], torch.where(
+                (aC > 0)[..., None], t[..., 4:], t[..., 3:4])], -1)
+            l = _gather2(y, py0[..., None] + r4, (px0 - 1)[..., None])
+            tl = _gather2(y, py0 - 1, px0 - 1)
+            nb = torch.cat([l.flip(-1), tl[..., None], t], -1)
+            dirp = _tap3(nb, i4idx[mode.clamp(0, 8).long()])
+            sA, sB = l.sum(-1, dtype=I32), t[..., :4].sum(-1, dtype=I32)
+            dc = _dc3(aA, aB, sA + sB, sA, sB, 3)
+            pred = torch.where((mode == 2)[..., None], dc[..., None], dirp)
+            rows = py0[..., None] + blk_y
+            cols = px0[..., None] + blk_x
+            recon = (pred + _gather2(res_y, rows, cols)).clamp(0, 255)
+            _scatter2(y, rows, cols, recon, val & is_i4)
+
+        # ---- Intra_8x8 luma: 4 quad-order substeps ---------------------
+        for b in range(4):
+            bx8, by8 = b & 1, b >> 1
+            px0, py0 = mxs * 16 + bx8 * 8, mys * 16 + by8 * 8
+            mm = pl("i8_modes", mys * 2 + by8, mxs * 2 + bx8)
+            mode = mm & 15
+            aA, aB = (mm >> 4) & 1, (mm >> 5) & 1
+            aC, aD = (mm >> 6) & 1, (mm >> 7) & 1
+            t = _gather2(y, (py0 - 1)[..., None], px0[..., None] + r16)
+            t = torch.cat([t[..., :8], torch.where(
+                (aC > 0)[..., None], t[..., 8:], t[..., 7:8])], -1)
+            l = _gather2(y, py0[..., None] + r8, (px0 - 1)[..., None])
+            tl = _gather2(y, py0 - 1, px0 - 1)
+            nb = torch.cat([l.flip(-1), tl[..., None], t], -1)
+            # §8.3.2.2.1 reference lowpass: 3-tap gather + boundary patches
+            nbf = _i8_edges(nb, (nb[..., fidx[:, 0]] + 2 * nb[..., fidx[:, 1]]
+                                 + nb[..., fidx[:, 2]] + 2) >> 2, aA, aB, aD)
+            dirp = _tap3(nbf, i8idx[mode.clamp(0, 8).long()])
+            zero = torch.zeros_like(mode)
+            st = torch.where(aB > 0, nbf[..., 9:17].sum(-1, dtype=I32), zero)
+            sl = torch.where(aA > 0, nbf[..., :8].sum(-1, dtype=I32), zero)
+            dc = _dc3(aA, aB, st + sl, sl, st, 4)
+            pred = torch.where((mode == 2)[..., None], dc[..., None], dirp)
+            rows = py0[..., None] + yy8
+            cols = px0[..., None] + xx8
+            recon = (pred + _gather2(res_y, rows, cols)).clamp(0, 255)
+            _scatter2(y, rows, cols, recon, val & is_i8)
+
+        # ---- I16x16 luma -----------------------------------------------
+        px0, py0 = mxs * 16, mys * 16
+        m = pl("i16_modes", mys, mxs)
+        mode = m & 3
+        aA, aB = (m >> 4) & 1, (m >> 5) & 1
+        t = _gather2(y, (py0 - 1)[..., None], px0[..., None] + r16)
+        l = _gather2(y, py0[..., None] + r16, (px0 - 1)[..., None])
+        tl = _gather2(y, py0 - 1, px0 - 1)
+        t = torch.where((aB > 0)[..., None], t, 0)
+        l = torch.where((aA > 0)[..., None], l, 0)
+        nb = torch.cat([l.flip(-1), tl[..., None], t], -1)
+        dirp = _tap3(nb, i16idx[mode.clamp(0, 1).long()])
+        st, sl = t.sum(-1, dtype=I32), l.sum(-1, dtype=I32)
+        dc = _dc3(aA, aB, st + sl, sl, st, 5)
+        hs = _plane_sums(nb, _I16_HP, _I16_HM, 8)
+        vs = _plane_sums(nb, _I16_VP, _I16_VM, 8)
+        a = 16 * (nb[..., 0] + nb[..., 32])
+        b_ = (5 * hs + 32) >> 6
+        c_ = (5 * vs + 32) >> 6
+        plane = ((a[..., None] + b_[..., None] * (xx16 - 7)
+                  + c_[..., None] * (yy16 - 7) + 16) >> 5).clamp(0, 255)
+        pred = torch.where((mode == 2)[..., None], dc[..., None],
+                           torch.where((mode == 3)[..., None], plane, dirp))
+        rows = py0[..., None] + yy16
+        cols = px0[..., None] + xx16
+        recon = (pred + _gather2(res_y, rows, cols)).clamp(0, 255)
+        _scatter2(y, rows, cols, recon, val & is_i16)
+
+        # ---- I_PCM -----------------------------------------------------
+        _scatter2(y, rows, cols, _gather2(p["pcm_y"], rows, cols),
+                  val & is_pcm)
+
+        # ---- chroma (all intra mbs; PCM overwrites) --------------------
+        cx0, cy0 = mxs * 8, mys * 8
+        crows = cy0[..., None] + yy8
+        ccols = cx0[..., None] + xx8
+        m = pl("ch_modes", mys, mxs)
+        mode = m & 3
+        aA, aB = (m >> 4) & 1, (m >> 5) & 1
+        for ci, (img, res_c) in enumerate(((cb, res_cb), (cr, res_cr))):
+            t = _gather2(img, (cy0 - 1)[..., None], cx0[..., None] + r8)
+            l = _gather2(img, cy0[..., None] + r8, (cx0 - 1)[..., None])
+            tl = _gather2(img, cy0 - 1, cx0 - 1)
+            t = torch.where((aB > 0)[..., None], t, 0)
+            l = torch.where((aA > 0)[..., None], l, 0)
+            nb = torch.cat([l.flip(-1), tl[..., None], t], -1)
+            dirp = _tap3(nb, chidx[(mode - 1).clamp(0, 1).long()])
+            dcmap = _chroma_dc(t, l, aA, aB, xx8, yy8)
+            hs = _plane_sums(nb, _CH_HP, _CH_HM, 4)
+            vs = _plane_sums(nb, _CH_VP, _CH_VM, 4)
+            a = 16 * (nb[..., 0] + nb[..., 16])
+            b_ = (34 * hs + 32) >> 6
+            c_ = (34 * vs + 32) >> 6
+            plane = ((a[..., None] + b_[..., None] * (xx8 - 3)
+                      + c_[..., None] * (yy8 - 3) + 16) >> 5).clamp(0, 255)
+            pred = torch.where((mode == 0)[..., None], dcmap,
+                               torch.where((mode == 3)[..., None], plane,
+                                           dirp))
+            recon = (pred + _gather2(res_c, crows, ccols)).clamp(0, 255)
+            _scatter2(img, crows, ccols, recon, val & is_intra & ~is_pcm)
+            _scatter2(img, crows, ccols,
+                      _gather2(p["pcm_c"][:, ci], crows, ccols),
+                      val & is_pcm)
+    return y, cb, cr
 
 
 # ---------------------------------------------------------------------------

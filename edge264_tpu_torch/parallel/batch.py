@@ -1,4 +1,4 @@
-"""K-lane lockstep GOP decoding on one device.
+"""K-lane lockstep GOP decoding on one device or over a mesh of devices.
 
 A stream splits into closed GOPs (independent by construction); K of them
 decode in LOCKSTEP: every device step processes one frame from each lane
@@ -13,7 +13,14 @@ until the group drains.  MVC streams ride the same machinery: each
 view-frame is one step (base first, then the non-base view referencing
 it), and output pairs the views per access unit.
 
-Port of `parallel/batch.py` (single device; the mesh path is not ported).
+The lane axis is also the multi-device axis: with a mesh
+(parallel/mesh.py) each shard holds a contiguous block of K/n lanes, its
+rings and its step on its own device; GOP lanes are reference-closed, so
+the shards exchange nothing.  The step's lanes are still packed into one
+buffer with one layout, and each shard's block of rows goes to its
+device.
+
+Port of `parallel/batch.py`.
 """
 
 from __future__ import annotations
@@ -30,6 +37,7 @@ from ..ops import batched as B
 from ..ops.intra import intra_round_plane
 from ..ops.tables import MBF_BLEND, MBF_IPCM, MBF_T8x8
 from .gop import split_gops
+from .mesh import DecodeMesh
 
 RING_SLOTS = 8      # initial per-lane reference ring slots (grows by doubling)
 
@@ -149,27 +157,45 @@ def _to_host(t):
     return h
 
 
-def decode_gops_batched(stream: bytes, *, lanes: int = 4,
+def decode_gops_batched(stream: bytes, *, lanes: int = 4, mesh=None,
                         sink: str = "frames", device=None):
     """Decode a whole Annex-B stream with its closed GOPs in K-lane
     lockstep; returns an iterator of frames in stream order.
 
     device: None -> "cuda" (raises when no CUDA device is present);
     pass device="cpu" to run the plain versions on the CPU.
+    mesh: a parallel.mesh.DecodeMesh to split the lanes over (then
+    `device` must be None, and `lanes` a multiple of the mesh size); a
+    group short of `lanes` GOPs is padded with dead lanes, which emit
+    nothing.
     sink="frames": Frames with host numpy planes.
     sink="digest": the frames stay on the device; yields DigestFrames
     carrying the 64-bit device checksum of each frame."""
-    device = pixel_device(device)
+    if mesh is None:
+        mesh = DecodeMesh((pixel_device(device),))
+        pad = False
+    else:
+        if device is not None:
+            raise ValueError("pass either mesh or device, not both")
+        if lanes % mesh.size:
+            raise ValueError(f"lanes={lanes} is not a multiple of the mesh "
+                             f"size {mesh.size}")
+        pad = True
     if sink not in ("frames", "digest"):
         raise ValueError(f"sink={sink!r}")
     if lanes < 1:
         raise ValueError(f"lanes={lanes}")
-    return _decode_all(split_gops(stream), lanes, sink, device)
+    return _decode_all(split_gops(stream), lanes, sink, mesh, pad)
 
 
-def _decode_all(gops, lanes, sink, device):
+def _decode_all(gops, lanes, sink, mesh, pad):
     for base in range(0, len(gops), lanes):
-        yield from _decode_group(gops[base:base + lanes], sink, device)
+        group = gops[base:base + lanes]
+        if pad:
+            # the shards split the full lane count: missing GOPs become
+            # dead lanes (empty streams decode to nothing)
+            group += [b""] * (lanes - len(group))
+        yield from _decode_group(group, sink, mesh)
 
 
 def _intra_mode(tabs):
@@ -185,10 +211,12 @@ def _intra_mode(tabs):
     return f"rounds{max(t[1] for t in tabs)}"
 
 
-def _decode_group(group, sink, device):
+def _decode_group(group, sink, mesh):
     S = RING_SLOTS
     lane_objs = [_Lane(g, S) for g in group]
     K = len(lane_objs)
+    devices = mesh.devices
+    b = K // mesh.size                  # lanes a shard
 
     def start_parsing(at_step):
         ts = []
@@ -203,15 +231,15 @@ def _decode_group(group, sink, device):
         return [i for i, ln in enumerate(lane_objs)
                 if len(ln.done_slots) > at_step]
 
-    refL = refC = None
+    rings = None            # per shard (refL, refC)
     keep = set()            # sticky: conditional planes some frame needed
     gat_state = {}          # sticky sparse-row buckets (pack_planes_batch)
     # residual levels go as int8 while every frame fits, on the card as
     # the JAX package does on its TPU; the first level out of range sends
     # the group to int16 for good
-    coef8 = device.type == "cuda"
+    coef8 = devices[0].type == "cuda"
     step = 0
-    step_out = []           # per-step host copies of the step's aux output
+    step_out = []           # per step: host copies of each shard's aux
     # PIPELINE: step N+1's entropy threads start before step N's upload
     # and device work, so host parsing overlaps both.  Output borrows keep
     # uploaded-pending slots pinned; all native API calls stay on this
@@ -239,8 +267,8 @@ def _decode_group(group, sink, device):
         if any(ln.done_slots[step][2] and not ln.ring_free
                for ln in lane_objs if len(ln.done_slots) > step):
             S2 = S * 2
-            if refL is not None:
-                refL, refC = B.grow_ref_rings(refL, refC, S, S2)
+            if rings is not None:
+                rings = [B.grow_ref_rings(L, C, S, S2) for L, C in rings]
             for ln in lane_objs:
                 ln.ring_free.extend(range(S, S2))
                 ln.S = S2
@@ -293,53 +321,59 @@ def _decode_group(group, sink, device):
         for ln in lane_objs:
             _return_packed(ln, step - 1)
         threads = start_parsing(step + 1)
-        # ONE upload per step: every lane's packed planes plus the step's
-        # meta block in one [K, L] arena; dead lanes are zero rows
+        # ONE packed buffer per step: every lane's planes plus the step's
+        # meta block in one [K, L] arena (dead lanes are zero rows), and
+        # one upload a shard of its block of rows
         ref_pl = next(pl for pl in planes_list if pl is not None)
         meta = B.pack_meta(sm4s, sm8s, slot_maps, ring_slots)
         if coef8 and gat_state.get("coef8_off"):
             coef8 = False
         buf, layout, meta_off = A.pack_planes_batch(
             planes_list, ref_pl, keep=keep, coef8=coef8, extra=meta,
-            gat_state=gat_state, device=device)
-        arenas = A.upload(buf, device)
+            gat_state=gat_state, device=devices[0])
+        arenas = [A.upload(buf[i * b:(i + 1) * b], d)
+                  for i, d in enumerate(devices)]
 
-        if refL is None:
-            refL, refC = B.alloc_ref_rings(K, S, mbW, mbH, device)
+        if rings is None:
+            rings = [B.alloc_ref_rings(b, S, mbW, mbH, d) for d in devices]
         fmt = lane_objs[live[0]].fmt
         crop = (fmt["crop_top"], fmt["crop_right"], fmt["crop_bottom"],
                 fmt["crop_left"])
-        y8, cb8, _, aux, refL, refC = B.decode_batch_step(
-            arenas, (refL, refC), layout=layout, meta_off=meta_off,
-            mbW=mbW, mbH=mbH, intra_mode=intra_mode, mc=step > 0,
-            emit="digest" if sink == "digest" else "flat", crop=crop)
-        step_out.append((_to_host(aux), y8.shape, cb8.shape))
+        outs = B.decode_batch_step_sharded(
+            arenas, rings, layout=layout, meta_off=meta_off, mbW=mbW,
+            mbH=mbH, intra_mode=intra_mode, mc=step > 0,
+            emit="digest" if sink == "digest" else "flat", crop=crop,
+            mesh=mesh)
+        rings = [(o[4], o[5]) for o in outs]
+        step_out.append(([_to_host(o[3]) for o in outs],
+                         outs[0][0].shape[1:], outs[0][1].shape[1:]))
         for i, ln in enumerate(lane_objs):
             if planes_list[i] is not None:
                 ln.store[ln.done_slots[step][1]] = (step, i)
         step += 1
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
+    for d in set(devices):
+        if d.type == "cuda":
+            torch.cuda.synchronize(d)
     yield from _emit_frames(lane_objs, step_out, sink)
 
 
 def _emit_frames(lane_objs, step_out, sink):
-    """Frames of every lane in output order, from the steps' host
-    copies."""
+    """Frames of every lane in output order, from the steps' host copies
+    (each step's shards concatenated in lane order)."""
     host_steps = {}
 
     def step_np(s):
         if s not in host_steps:
-            a, yshape, cshape = step_out[s]
-            a = a.numpy()
+            parts, yshape, cshape = step_out[s]
+            a = torch.cat(parts).numpy()
             if sink == "digest":
                 host_steps[s] = a
             else:
-                ny = yshape[1] * yshape[2]
-                nc = cshape[1] * cshape[2]
-                host_steps[s] = (a[:, :ny].reshape(yshape),
-                                 a[:, ny:ny + nc].reshape(cshape),
-                                 a[:, ny + nc:].reshape(cshape))
+                ny = yshape[0] * yshape[1]
+                nc = cshape[0] * cshape[1]
+                host_steps[s] = (a[:, :ny].reshape((-1,) + yshape),
+                                 a[:, ny:ny + nc].reshape((-1,) + cshape),
+                                 a[:, ny + nc:].reshape((-1,) + cshape))
         return host_steps[s]
 
     for lane, ln in enumerate(lane_objs):

@@ -38,8 +38,9 @@ mods = [m.name for m in pkgutil.walk_packages(edge264_tpu_torch.__path__,
                                               "edge264_tpu_torch.")]
 for m in mods:
     importlib.import_module(m)
-assert {"edge264_tpu_torch.ops." + m for m in ("oracle", "deblock_oracle",
-                                               "frame")} <= set(mods)
+assert {"edge264_tpu_torch." + m for m in (
+    "ops.oracle", "ops.deblock_oracle", "ops.frame", "ops.intra",
+    "parallel.mesh", "parallel.distributed")} <= set(mods)
 from edge264_tpu_torch import streams
 from edge264_tpu_torch.api import decode_annexb
 from edge264_tpu_torch.parallel.batch import decode_gops_batched

@@ -14,15 +14,19 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-from chip_smoke import RouteLog, deblock_inputs, intra_case, \
-    intra_inputs, mc_inputs  # noqa: E402
+from chip_smoke import RouteLog, deblock_inputs, decoded_planes, \
+    intra_case, intra_inputs, mc_inputs  # noqa: E402
 from edge264_tpu_torch import streams  # noqa: E402
 from edge264_tpu_torch.api import decode_annexb, find_start_code  # noqa
+from edge264_tpu_torch.convert import CONDITIONAL, planes_to_torch  # noqa
 from edge264_tpu_torch.native import EV_FRAME_DONE, NativeDecoder  # noqa
 from edge264_tpu_torch.ops import arena as A  # noqa: E402
 from edge264_tpu_torch.ops import deblock as D  # noqa: E402
+from edge264_tpu_torch.ops import frame as F  # noqa: E402
 from edge264_tpu_torch.ops import intra as I  # noqa: E402
 from edge264_tpu_torch.ops import mc as M  # noqa: E402
+from edge264_tpu_torch.ops.batched import host_frame_digest  # noqa: E402
+from edge264_tpu_torch.parallel import make_decode_mesh  # noqa: E402
 from edge264_tpu_torch.parallel.batch import \
     decode_gops_batched  # noqa: E402
 from edge264_tpu_torch.parallel.gop import \
@@ -449,6 +453,74 @@ def test_two_threads_share_no_staging(dev):
         for a, b in zip(want, frames):
             for c in ("y", "cb", "cr"):
                 assert np.array_equal(getattr(a, c), getattr(b, c))
+
+
+def test_staging_uploads_rows_to_two_shards(dev):
+    """At every step one pinned staging buffer's two rows go to two shards
+    (two cards where there are, else cuda:0 twice), the two buffers taken
+    in turn over 5 steps: each buffer keeps both copies' events, its
+    refill waits on both, and every shard's row arrives intact."""
+    data = streams.avcgen().gen_random_cabac_ipb_stream(
+        6, 4, n_gops=1, seed=6, closed=True, gop_pb=2, density=0.1,
+        intra_prob=0.1)
+    steps = _arena_steps(data)
+    devs = [torch.device("cuda:0"),
+            torch.device(f"cuda:{min(1, torch.cuda.device_count() - 1)}")]
+    st = A._staging()
+    got = []
+    for buf, _ in steps:
+        host = A._arena_buf(buf.shape[1], 2, dev)
+        host.copy_(buf)
+        got.append([A.upload(host[i:i + 1], d) for i, d in enumerate(devs)])
+        i = [b.data_ptr() if b is not None else None
+             for b in st.bufs].index(host.data_ptr())
+        assert len(st.done[i]) == 2
+    assert len(got) == 5
+    for (buf, _), parts in zip(steps, got):
+        for i, t in enumerate(parts):
+            assert t.device == devs[i]
+            assert torch.equal(t.cpu(), buf[i:i + 1])
+
+
+def test_mesh_lockstep_on_card_matches_cpu(dev):
+    """decode_gops_batched over a mesh of two shards on cuda:0, both
+    sinks, == device="cpu"; every kernel launches."""
+    data = b"".join(streams.avcgen().gen_random_cabac_ipb_stream(
+        8, 6, n_gops=1, seed=s, closed=True, gop_pb=1 + s, density=0.1,
+        max_level=4, intra_prob=0.1) for s in (0, 1))
+    want = list(decode_gops_batched(data, lanes=2, device="cpu"))
+    mesh = make_decode_mesh(["cuda:0", "cuda:0"])
+    n = [f.launches for f in (I.intra_batch, D.deblock_batch, M.mc_luma,
+                              M.mc_chroma)]
+    got = list(decode_gops_batched(data, lanes=2, mesh=mesh))
+    digests = list(decode_gops_batched(data, lanes=2, mesh=mesh,
+                                       sink="digest"))
+    assert all(f.launches > k for f, k in zip(
+        (I.intra_batch, D.deblock_batch, M.mc_luma, M.mc_chroma), n))
+    assert len(got) == len(digests) == len(want) > 0
+    for a, b, d in zip(want, got, digests):
+        for c in ("y", "cb", "cr"):
+            assert np.array_equal(getattr(a, c), getattr(b, c))
+        assert d.digest == host_frame_digest(a.y, a.cb, a.cr)
+
+
+def test_frame_with_itab_on_card_raises(dev):
+    """Level tables with planes on the card raise instead of running the
+    plain level-gather scan there; without them intra.cu runs."""
+    data = streams.avcgen().gen_random_cabac_ipb_stream(
+        6, 4, n_gops=1, seed=12, closed=True, gop_pb=1, density=0.1,
+        max_level=4, intra_prob=0.25)
+    (pl, sm4, sm8, *_), = decoded_planes(data, 1)
+    p = planes_to_torch([pl], CONDITIONAL, dev)
+    s4 = torch.as_tensor(sm4, device=dev)[None]
+    s8 = torch.as_tensor(sm8, device=dev)[None]
+    tabs = tuple(torch.zeros((1, 2, 2), dtype=torch.int32, device=dev)
+                 for _ in range(3))
+    with pytest.raises(ValueError, match="CPU only"):
+        F.decode_frame(p, s4, s8, 6, 4, itab=tabs)
+    n = I.intra_batch.launches
+    F.decode_frame(p, s4, s8, 6, 4)
+    assert I.intra_batch.launches == n + 1
 
 
 def test_kernels_launch_on_their_tensors_device(dev):
