@@ -17,21 +17,29 @@ Phases (any failure raises and exits non-zero):
               Every kernel timed so at K=8 too (bench.py's lanes); the MC
               kernels held exact at K=8, on K=3 5x3 mbs, on mvs driven to
               every clamp and with one list, and their ring reads counted
-              in 32-byte sectors (the sector floor).  Also the intra kernel
-              against the level rounds (intra_rounds) on one intra-sparse
-              input, both timed; the intra and deblock kernels held exact
-              on an odd geometry (K=3, 3x5 mbs) and at K=16 (1088 row
-              workers), and the intra kernel at the front end's widest
-              row (K=1, 1023x2 mbs).
+              in 32-byte sectors (the sector floor).  The MC kernels' route
+              (pack_mc_params -> mc.cu -> combine_mc) held exact against
+              mc_frame, the plain gathers that share no packing with it,
+              at DCI 4K (K=1, 256x135 mbs) and with a 33-slot 1080p ring;
+              both kernels exact against their plain versions at the
+              front end's widest row (1023x2 mbs) and tallest column
+              (2x1056 mbs).  Also the intra kernel against the level
+              rounds (intra_rounds) on one intra-sparse input, both timed;
+              the intra and deblock kernels held exact on an odd geometry
+              (K=3, 3x5 mbs) and at K=16 (1088 row workers), and the intra
+              kernel at the front end's widest row (K=1, 1023x2 mbs).
   3. decode   the main path: a 1080p (120x68 mb) CABAC IPB stream of 2
               closed GOPs (IDR+P+B) through decode_gops_batched(lanes=2)
               on cuda with sink="frames" and sink="digest", and on the CPU
               (device="cpu", the plain versions) as the reference: every
               frame byte-identical, every digest == host_frame_digest;
-              every kernel and both intra routes (the kernel on IDR steps,
-              the level rounds on intra-sparse P/B steps) used; each
+              every kernel used, the MC kernels on every inter step and
+              intra.cu on every step with an intra mb, no plain version
+              of a kernel (intra_rounds, mc_frame) on the card; each
               step's arena bytes (beside the int32 bytes planes_to_torch
-              would send) and the packer's host ms.
+              would send), the packer's host ms, and the host ms of the
+              step's intra route choice (beside the CPU route's depth
+              planes on the same flags).
   4. single   the single-frame path: decode_annexb on cuda over the same
               stream, every frame byte-identical to phase 3's CPU frames,
               all four kernels launched, each frame's arena bytes and
@@ -46,32 +54,33 @@ Phases (any failure raises and exits non-zero):
   6. entry    decode_annexb_parallel (two worker threads) and the
               command-line app (cli.main, golden YUV from phase 3's CPU
               frames) on cuda: byte-identical, PASS.
-  7. wide     a 4096x512 (256x32 mb) CABAC IPB stream, past the MC
-              kernels' load words, through decode_annexb and the lockstep
-              driver on cuda: every inter step takes mc_frame (the route
-              of each step printed), the intra and deblock kernels run,
-              every frame byte-identical to the CPU path; mc_frame, intra
-              and deblock ms.
+  7. wide     a 4096x512 (256x32 mb) CABAC IPB stream (DCI 4K's width)
+              through decode_annexb and the lockstep driver on cuda: the
+              MC kernels on every inter step (no mc_frame), intra.cu on
+              every step with an intra mb, deblocking on every step,
+              every frame byte-identical to the CPU path; the stages' ms.
   8. frame    decode_frame and decode_frame_inter (ops/frame.py) on phase
               3's first IDR + P pair on cuda, against the CPU.
   9. oracle   a CIF-class stream (22x18 mbs, IDR + 2 x (P+B)) decoded by
               backend="numpy", the scalar oracle on the host that shares
               no code with the port's tensor path (its seconds printed):
               decode_annexb and the lockstep driver on cuda byte-identical
-              to it, and the lockstep driver with a 33-slot ring (every
-              inter step on mc_frame) on cuda and on the CPU too.
+              to it, and the lockstep driver with a 33-slot ring (the MC
+              kernels on every inter step) on cuda and on the CPU too.
  10. mesh     the multi-device paths: phase 3's stream through
               decode_gops_batched(lanes=2) over a mesh of two shards on
               cuda:0 (and over every card when there are more), both
               sinks, frames byte-identical to phase 3's CPU frames and
-              digests to host_frame_digest, with intra, deblock and both
-              MC kernels launched on every shard; decode_batch_sharded on
-              the stream's two IDR frames over two shards against the CPU
-              (phase 8's IDR, phase 3's frame); decode_stream_multihost in
-              two processes on the card (torch.distributed, gloo on
-              127.0.0.1), one GOP each, their frames in rank order
-              byte-identical to phase 3's.  Seconds and frames/s of each:
-              two shards or two processes on one card measure no scaling.
+              digests to host_frame_digest, with deblock and both MC
+              kernels launched on every shard, intra.cu on each of its
+              steps with an intra mb, the level rounds never;
+              decode_batch_sharded on the stream's two IDR frames over two
+              shards against the CPU (phase 8's IDR, phase 3's frame);
+              decode_stream_multihost in two processes on the card
+              (torch.distributed, gloo on 127.0.0.1), one GOP each, their
+              frames in rank order byte-identical to phase 3's.  Seconds
+              and frames/s of each: two shards or two processes on one
+              card measure no scaling.
  11. report   per-stage device ms (unpack_planes among them) and frames/s
               of both paths, the wide stream's stages, then the `kernels`
               JSON line, the card's name and power limit, and the final
@@ -117,6 +126,8 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM device memory
 SCALAR_OPS_PER_S = 67e12         # H100 SXM non-tensor 32-bit rate
 OUT_DIR = "chiprun_out"
+TRACE_TRIES = 3                  # traced runs before a short trace counts
+QUEUE_SLEEP_CYCLES = 200_000_000  # ~0.1 s at the H100's 1.98 GHz
 
 
 def log(msg):
@@ -210,19 +221,21 @@ def mc_planes(rng, K, S, mbW, mbH, mvmax=300, arm=None):
     return planes
 
 
-def mc_inputs(dev, seed=7, K=K, mbW=MBW, mbH=MBH, S=S, has_b=True, **kw):
-    """One MC kernel input on `dev` (1080p, K=2 lanes, S=8 ring slots by
-    default): mc_planes(**kw) packed by pack_mc_params, rings made by
-    make_ref_planes from random frames.  Returns {name: args} for
-    mc_luma and mc_chroma, args = (flags [K,BR,BC], load words
-    [K,BR,BC*16], ring band, n_lists), the arguments of the wrapper and
-    of its plain version."""
+def mc_case(dev, seed=7, K=K, mbW=MBW, mbH=MBH, S=S, **kw):
+    """mc_planes(**kw) for K lanes on `dev`, with the planes combine_mc
+    reads (no weighted prediction, every mb inter), slot maps sending DPB
+    slot s to ring index S - s (so the last slot is read), and rings of
+    S + 1 slots made by make_ref_planes from random frames.  Returns
+    (planes, slot_maps, refL [K,S+1,4,ph,pw_b], refC
+    [K,S+1,phc,2*pwc_pad])."""
     planes = mc_planes(np.random.RandomState(seed), K, S, mbW, mbH, **kw)
-    p = planes_to_torch(planes, set(), dev)
+    for pl in planes:
+        pl.update(wp=np.zeros((mbH, mbW, 24), np.int32),
+                  wp8=np.zeros((2 * mbH, 2 * mbW, 2, 3, 2), np.int32),
+                  mb_flags=np.full((mbH, mbW), 64 | 32, np.int32))
+    p = planes_to_torch(planes, {"wp", "wp8"}, dev)
     smap = np.zeros((K, 32), np.int32)
-    smap[:, :S] = np.arange(S)
-    flg, pkl, pkc = M.pack_mc_params(p, torch.as_tensor(smap, device=dev),
-                                     has_b, mbW, mbH, S + 1)
+    smap[:, :S] = np.arange(S, 0, -1)
     g = torch.Generator(device=dev).manual_seed(seed)
     H, W = 16 * mbH, 16 * mbW
     y = torch.randint(0, 256, (K * (S + 1), H, W), generator=g, device=dev,
@@ -230,12 +243,24 @@ def mc_inputs(dev, seed=7, K=K, mbW=MBW, mbH=MBH, S=S, has_b=True, **kw):
     c = torch.randint(0, 256, (2, K * (S + 1), H // 2, W // 2), generator=g,
                       device=dev, dtype=torch.uint8)
     L, C = M.make_ref_planes(y, c[0], c[1])
+    return (p, torch.as_tensor(smap, device=dev),
+            L.reshape((K, S + 1) + L.shape[1:]),
+            C.reshape((K, S + 1) + C.shape[1:]))
+
+
+def mc_inputs(dev, seed=7, K=K, mbW=MBW, mbH=MBH, S=S, has_b=True, **kw):
+    """One MC kernel input on `dev` (1080p, K=2 lanes, S=8 ring slots by
+    default): mc_case(**kw) packed by pack_mc_params.  Returns {name:
+    args} for mc_luma and mc_chroma, args = (flags [K,BR,BC], load word
+    pairs [K,BR,BC*16], int32, ring band, n_lists), the arguments of the
+    wrapper and of its plain version."""
+    p, smap, L, C = mc_case(dev, seed, K, mbW, mbH, S, **kw)
+    flg, pkl, pkc = M.pack_mc_params(p, smap, has_b, mbW, mbH)
     BR, BC = flg.shape[1], flg.shape[3]
     f3, n = flg.reshape(K, BR, BC), 2 if has_b else 1
     return {"mc_luma": (f3, pkl.reshape(K, BR, BC * 16),
                         L.reshape((K, -1) + L.shape[-2:]), n),
-            "mc_chroma": (f3, pkc.reshape(K, BR, BC * 16),
-                          C.reshape((K, S + 1) + C.shape[1:]), n)}
+            "mc_chroma": (f3, pkc.reshape(K, BR, BC * 16), C, n)}
 
 
 MC_PLAIN = {"mc_luma": M.mc_luma_plain, "mc_chroma": M.mc_chroma_plain}
@@ -248,17 +273,18 @@ MC_SPANS = {"mc_luma": ((M._F_PAIR, 1, 8, 16), (M._F_UNIFORM, 1, 8, 8),
 
 def mc_sectors(name, flg, pk, band, n_lists):
     """Distinct 32-byte sectors of the ring that one call's used outputs
-    read: per used load word its arm's rows and bytes (chroma's +1 row and
-    +2 column bilinear neighbours included; luma reads two planes, chroma
-    one).  The sector floor of a gather from random offsets."""
+    read: per used load word pair its arm's rows and bytes (chroma's +1 row
+    and +2 column bilinear neighbours included; luma reads two samples, A
+    and B, chroma one footprint).  The sector floor of a gather from
+    random offsets."""
     K, BR, BC = flg.shape
     _, n_pl, rows_pl, pitch = band.shape
-    words = pk.reshape(K, BR, BC, 2, 4, 2).long()[:, :, :, :n_lists]
+    words = pk.reshape(K, BR, BC, 2, 4, 2)[:, :, :, :n_lists].long()
     f = flg.long()
     lane = torch.arange(K, device=flg.device)[:, None, None, None, None]
-    planes = (0, 1) if name == "mc_luma" else (0,)
+    luma = name == "mc_luma"
     taken = torch.zeros_like(f, dtype=torch.bool)
-    if name == "mc_luma":
+    if luma:
         taken |= (f & M._F_PAIRODD) != 0    # read by the even block's words
     ids = []
     for bits, nq, rows, width in MC_SPANS[name]:
@@ -266,15 +292,16 @@ def mc_sectors(name, flg, pk, band, n_lists):
         taken |= arm
         for l in range(n_lists):
             used = arm & (((f >> l) & 1) == 1)
-            for j in planes:
-                w = words[:, :, :, l, :nq, j][..., None]     # [K,BR,BC,q,1]
-                ok = used[..., None, None] & (words[:, :, :, l, :nq, 0] >= 0
-                                              )[..., None]
-                r = torch.arange(rows, device=flg.device)
-                start = (((lane * n_pl + (w >> 24)) * rows_pl
-                          + ((w >> 12) & 0xFFF) + r) * pitch + (w & 0xFFF))
+            pos = words[:, :, :, l, :nq, 0][..., None]      # [K,BR,BC,q,1]
+            ring = words[:, :, :, l, :nq, 1][..., None]
+            ok = (used[..., None, None] & (pos >= 0)).expand(
+                pos.shape[:-1] + (rows,))
+            r = torch.arange(rows, device=flg.device)
+            for plane, wy, wx in M.load_fields(pos, ring, luma):
+                start = ((lane * n_pl + plane) * rows_pl + wy + r) * pitch \
+                    + wx
                 for s in (start, start + width - 1):
-                    ids.append((s >> 5)[ok.expand_as(s)])
+                    ids.append((s >> 5)[ok])
     return int(torch.unique(torch.cat(ids)).numel())
 
 
@@ -282,28 +309,68 @@ def device_ms(name, fn, reps):
     """Mean device ms of one launch of kernel `name`: fn() run `reps`
     times under torch.profiler (after one warm-up call), the summed
     durations of the trace's events of the kernel's device function
-    (SYMBOLS) over their number.  The trace can lack some of a run's
-    kernel events, so dividing by the launches would read low; a shortfall
-    is logged.  No host work is inside the number, unlike cuda_ms around a
-    wrapper call."""
+    (SYMBOLS) over their number.  No host work is inside the number,
+    unlike cuda_ms around a wrapper call.  The trace can lack some of a
+    run's kernel events, so dividing by the launches would read low (a
+    shortfall is logged), and at times it holds none: the traced run is
+    then taken again, TRACE_TRIES times in all, and after that the
+    launches are timed by queued_ms."""
     fn()
     torch.cuda.synchronize()
-    n0 = COUNTED[name].launches
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    launches = COUNTED[name].launches - n0
-    ev = [e for e in prof.events()
-          if e.device_type == DeviceType.CUDA and SYMBOLS[name] in e.name]
-    if launches != reps or not 0 < len(ev) <= reps:
-        raise RuntimeError(f"{name}: {len(ev)} device events for {launches} "
-                           f"launches of {reps} calls in the trace")
+    for attempt in range(1, TRACE_TRIES + 1):
+        n0 = COUNTED[name].launches
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        launches = COUNTED[name].launches - n0
+        ev = [e for e in prof.events()
+              if e.device_type == DeviceType.CUDA and SYMBOLS[name] in e.name]
+        if launches != reps or len(ev) > reps:
+            raise RuntimeError(f"{name}: {len(ev)} device events for "
+                               f"{launches} launches of {reps} calls in the "
+                               "trace")
+        if ev:
+            break
+        log(f"[kernels] {name}: trace {attempt} of {TRACE_TRIES} holds no "
+            f"device event of its {reps} launches")
+    else:
+        ms = queued_ms(fn, reps)
+        log(f"[kernels] {name}: device_ms {ms:.4f} from CUDA events around "
+            "queued launches")
+        return ms
     if len(ev) < reps:
         log(f"[kernels] {name}: the trace holds {len(ev)} of {reps} device "
             f"events; device_ms is their mean")
     return sum(e.time_range.elapsed_us() for e in ev) / 1e3 / len(ev)
+
+
+def queued_ms(fn, reps):
+    """Mean device ms of fn() from a CUDA event pair around each of `reps`
+    calls (after one warm-up call), all queued behind torch.cuda._sleep so
+    that the device runs them back to back: the pairs then time the
+    device work without the host's launch gaps.  If the sleep ran out
+    before the last call was queued, it is taken again with a sleep twice
+    as long, TRACE_TRIES times in all, and then raises."""
+    fn()
+    cycles = QUEUE_SLEEP_CYCLES
+    for _ in range(TRACE_TRIES):
+        pairs = [(torch.cuda.Event(enable_timing=True),
+                  torch.cuda.Event(enable_timing=True)) for _ in range(reps)]
+        torch.cuda.synchronize()
+        torch.cuda._sleep(cycles)
+        for a, b in pairs:
+            a.record()
+            fn()
+            b.record()
+        drained = pairs[0][0].query()
+        torch.cuda.synchronize()
+        if not drained:
+            return sum(a.elapsed_time(b) for a, b in pairs) / reps
+        cycles *= 2
+    raise RuntimeError("queued_ms: the device drained the queue before "
+                       "the last call was issued")
 
 
 def deblock_inputs(dev, seed=11, K=K, mbW=MBW, mbH=MBH):
@@ -384,40 +451,89 @@ def check_equal(name, got, want):
     return err
 
 
+def mc_cost(name, flg, pk, band, n_lists):
+    """(least bytes, integer operations, ring sectors, sector-floor bytes)
+    of one MC call.  Least bytes: flags and load word pairs read once,
+    the outputs written once, and per used output sample the distinct
+    ring bytes it needs (luma: one sample of each of 2 half-pel planes;
+    chroma: 1, the 2x2 footprints of neighbouring samples overlap).  The
+    sector floor, an estimate: the same with the ring read in the 32-byte
+    sectors that this data's offsets touch (mc_sectors)."""
+    K, BR, BC = flg.shape
+    fl = flg.cpu()
+    used = sum(int(((fl >> l) & 1).sum()) for l in range(n_lists)) * 64
+    luma = name == "mc_luma"
+    samples = used if luma else used // 2
+    words = flg.numel() * flg.element_size() + pk.numel() * pk.element_size()
+    out_bytes = n_lists * K * (8 if luma else 4) * BR * 8 * BC
+    sectors = mc_sectors(name, flg, pk, band, n_lists)
+    return (words + out_bytes + (2 if luma else 1) * samples,
+            12 * samples,         # address + filter integer ops / sample
+            sectors, words + out_bytes + 32 * sectors)
+
+
+def mc_reach(dev):
+    """The load words' reach: the MC kernels' route (mc_predict: pack ->
+    mc.cu -> combine) against mc_frame, the plain gathers that share no
+    packing with it, at DCI 4K (K=1, 256x135 mbs) and with a 33-slot
+    1080p ring (K=1), random vectors, exact; then each kernel against
+    its plain version at the front end's widest row (1023x2 mbs) and
+    tallest column (2x1056 mbs); then each kernel's device ms at phase
+    7's geometry (K=1, 256x32 mbs) and on the 33-slot ring."""
+    out = {}
+    for label, kw in (("DCI 4K 256x135", dict(mbW=256, mbH=135)),
+                      ("33-slot ring", dict(S=32))):
+        p, smap, L, C = mc_case(dev, 19, K=1, **kw)
+        mbW, mbH = kw.get("mbW", MBW), kw.get("mbH", MBH)
+        n = M.mc_luma.launches, M.mc_chroma.launches
+        got = M.mc_predict(p, smap, L, C, True, mbW, mbH)
+        if (M.mc_luma.launches - n[0], M.mc_chroma.launches - n[1]) != (1, 1):
+            raise AssertionError(f"MC route {label}: the kernels did not "
+                                 "launch once each")
+        out[label] = check_equal(f"MC route {label} vs mc_frame", got,
+                                 M.mc_frame(p, L, C, smap, True))
+        del p, smap, L, C, got
+    for label, kw in (("1023x2", dict(mbW=1023, mbH=2)),
+                      ("2x1056", dict(mbW=2, mbH=1056))):
+        for name, args in mc_inputs(dev, 20, K=1, **kw).items():
+            out[f"{name} {label}"] = check_equal(
+                f"{name} {label}", COUNTED[name](*args),
+                MC_PLAIN[name](*args))
+    log("[kernels] MC route exact against mc_frame at DCI 4K (256x135 "
+        "mbs) and on a 33-slot ring; mc_luma and mc_chroma exact against "
+        "their plain versions at 1023x2 and 2x1056 mbs")
+    for label, kw in (("4096x512", dict(mbW=WIDE_W, mbH=WIDE_H)),
+                      ("33-slot ring", dict(S=32))):
+        for name, args in mc_inputs(dev, 21, K=1, **kw).items():
+            nbytes, _ops, sectors, sbytes = mc_cost(name, *args)
+            r = out[f"{name} {label} K=1"] = dict(
+                device_ms=device_ms(name, lambda: COUNTED[name](*args), 10),
+                bytes=nbytes, sector_bytes=sbytes, ring_sectors=sectors)
+            log(f"[kernels] {name} {label}, K=1: device "
+                f"{r['device_ms']:.4f} ms; bound "
+                f"{nbytes / HBM_BYTES_PER_S * 1e3:.4f} ms, sector floor "
+                f"{sbytes / HBM_BYTES_PER_S * 1e3:.4f} ms")
+    return out
+
+
 def phase_kernels(dev):
     out = {}
     case = mc_inputs(dev)
-    f3 = case["mc_luma"][0]
-    BR, BC = f3.shape[1:]
-    fl = f3.cpu().numpy()
-    used = [int(((fl >> l) & 1).sum()) * 64 for l in (0, 1)]  # samples
-    step_bytes = (f3.numel() + case["mc_luma"][1].numel()) * 4
-    for name, per_sample, out_h in (("mc_luma", 2, 8 * BR),
-                                    ("mc_chroma", 1, 4 * BR)):
+    for name in ("mc_luma", "mc_chroma"):
         kern, plain, args = COUNTED[name], MC_PLAIN[name], case[name]
         err = check_equal(name, kern(*args), plain(*args))
         torch.cuda.synchronize()
         ms = cuda_ms(lambda: kern(*args), 20)
         dms = device_ms(name, lambda: kern(*args), 20)
         plain_ms = cuda_ms(lambda: plain(*args), 3)
-        # least bytes: flags + load words read once, both lists' outputs
-        # written once, and per used output sample the distinct ring bytes
-        # it needs (luma: one sample of each of 2 half-pel planes; chroma:
-        # 1, the 2x2 footprints of neighbouring samples overlap)
-        samples = sum(used) if name == "mc_luma" else sum(used) // 2
-        out_bytes = 2 * K * out_h * 8 * BC
-        nbytes = step_bytes + out_bytes + per_sample * samples
-        ops = 12 * samples          # address + filter integer ops / sample
-        # the sector floor, an estimate: the same, with the ring read in
-        # the 32-byte sectors that this data's random offsets touch
-        sectors = mc_sectors(name, *args)
-        sector_bytes = step_bytes + out_bytes + 32 * sectors
+        nbytes, ops, sectors, sector_bytes = mc_cost(name, *args)
         out[name] = dict(max_abs_err=err, ms=ms, device_ms=dms,
                          plain_ms=plain_ms, bytes=nbytes, ops=ops,
                          ring_sectors=sectors, sector_bytes=sector_bytes)
         log(f"[kernels] {name}: exact; {ms:.3f} ms (device {dms:.4f} ms) "
-            f"vs plain {plain_ms:.3f} ms; {sectors} ring sectors, sector "
-            f"floor {sector_bytes / HBM_BYTES_PER_S * 1e3:.4f} ms")
+            f"vs plain {plain_ms:.3f} ms; {sectors} ring sectors, bound "
+            f"{nbytes / HBM_BYTES_PER_S * 1e3:.4f} ms, sector floor "
+            f"{sector_bytes / HBM_BYTES_PER_S * 1e3:.4f} ms")
     del case
 
     # K=8 (bench.py's lanes): times; then exact on K=8, an odd geometry,
@@ -441,6 +557,7 @@ def phase_kernels(dev):
         f"{out['mc_chroma']['ms_k8']:.3f} ms (device "
         f"{out['mc_chroma']['device_ms_k8']:.4f}); MC exact at K=8, on "
         f"K=3 5x3 mbs, the clamp input (mvs to +-2000) and one list")
+    out["mc_reach"] = mc_reach(dev)
 
     y, cb, cr, pd, bs_v, bs_h = deblock_inputs(dev)
     want = D.deblock_scan(y.clone(), cb.clone(), cr.clone(), pd, bs_v, bs_h,
@@ -692,21 +809,82 @@ def read_counts():
 
 
 class RouteLog:
-    """Records the route mc.mc_predict takes at each call (mc.mc_route's
-    answer, "kernels" or "frame")."""
+    """Records the route of each inter prediction: "kernels" for each
+    run_mc_kernels call (pack_mc_params -> mc_luma + mc_chroma, the CUDA
+    kernels on a card and their plain versions on the CPU) and "frame"
+    for each mc_frame call (plain gathers, which no decode path takes);
+    `launches`, after the block, the MC kernels' launches in it."""
 
     def __enter__(self):
         self.routes = []
-        self.saved = M.mc_route
+        self.saved = (M.run_mc_kernels, M.mc_frame)
+        self.n0 = (M.mc_luma.launches, M.mc_chroma.launches)
 
-        def rec(*a):
-            self.routes.append(self.saved(*a))
-            return self.routes[-1]
-        M.mc_route = rec
+        def rec(fn, route):
+            def wrapped(*a, **kw):
+                self.routes.append(route)
+                return fn(*a, **kw)
+            return wrapped
+        M.run_mc_kernels = rec(self.saved[0], "kernels")
+        M.mc_frame = rec(self.saved[1], "frame")
         return self
 
     def __exit__(self, *exc):
-        M.mc_route = self.saved
+        M.run_mc_kernels, M.mc_frame = self.saved
+        self.launches = {"mc_luma": M.mc_luma.launches - self.n0[0],
+                         "mc_chroma": M.mc_chroma.launches - self.n0[1]}
+
+
+class IntraModes:
+    """Wraps parallel.batch._intra_mode, the lockstep step's intra route
+    choice on the host: each step's route and host ms.  plane_ms(), after
+    the run, times on copies of the same flags the depth planes that the
+    CPU route builds (intra_round_plane for every lane)."""
+
+    def __enter__(self):
+        self.modes, self.ms, self.flags = [], [], []
+        self.saved = TB._intra_mode
+
+        def rec(flags_list, mbW, mbH, on_cpu):
+            t0 = time.perf_counter()
+            mode = self.saved(flags_list, mbW, mbH, on_cpu)
+            self.ms.append((time.perf_counter() - t0) * 1e3)
+            self.modes.append(mode)
+            self.flags.append(([np.array(f) for f in flags_list], mbW, mbH))
+            return mode
+        TB._intra_mode = rec
+        return self
+
+    def __exit__(self, *exc):
+        TB._intra_mode = self.saved
+
+    @property
+    def non_skip(self):
+        return sum(m != "skip" for m in self.modes)
+
+    def plane_ms(self):
+        out = []
+        for flags_list, mbW, mbH in self.flags:
+            t0 = time.perf_counter()
+            for f in flags_list:
+                I.intra_round_plane(f, mbW, mbH)
+            out.append((time.perf_counter() - t0) * 1e3)
+        return out
+
+
+def check_no_plain(name, launches, routes, intra_steps=None):
+    """The card ran no plain version of a kernel (routes: a RouteLog): no
+    level rounds, no mc_frame, both MC kernels launched for every inter
+    prediction and, where intra_steps is given, intra.cu once for each
+    step or frame with intra work."""
+    n = len(routes.routes)
+    if launches["intra_rounds"] or "frame" in routes.routes \
+            or routes.launches != {"mc_luma": n, "mc_chroma": n} \
+            or intra_steps not in (None, launches["intra"]):
+        raise AssertionError(
+            f"{name} on cuda: launches {launches}, MC routes "
+            f"{routes.routes} (MC launches {routes.launches}), "
+            f"{intra_steps} steps with intra work")
 
 
 def check_frames(name, want, got):
@@ -732,30 +910,37 @@ def phase_decode():
     list(decode_gops_batched(data, lanes=2, sink="digest"))
 
     reset_counts()
-    with PackMeter() as pm, RouteLog() as rl:
+    with PackMeter() as pm, RouteLog() as rl, IntraModes() as im:
         t0 = time.perf_counter()
         frames = list(decode_gops_batched(data, lanes=2))
         res["frames_s"] = time.perf_counter() - t0
     res["launches"] = read_counts()
     res["pack"] = pm.summary()
     res["mc_routes"] = rl.routes
+    res["intra_modes"] = im.modes
+    res["intra_mode_host_ms"] = im.ms
+    res["depth_plane_host_ms"] = im.plane_ms()
     if rl.routes != ["kernels", "kernels"]:
         raise AssertionError(f"1080p lockstep MC routes {rl.routes}")
     if not res["pack"]["pinned"] or res["pack"]["uploads"] != 3:
         raise AssertionError(f"lockstep arena uploads: {res['pack']}")
     log_pack("decode", "step", res["pack"])
-    if not all(res["launches"].values()):
-        raise AssertionError(f"a kernel or route never ran: "
-                             f"{res['launches']}")
+    check_no_plain("1080p lockstep", res["launches"], rl, im.non_skip)
+    if not all(res["launches"][k] for k in KERNELS):
+        raise AssertionError(f"a kernel never ran: {res['launches']}")
+    log(f"[decode] intra route of each step {im.modes}: its host ms "
+        + ", ".join(f"{m:.3f}" for m in im.ms) + " (the CPU route's depth "
+        "planes on the same flags: " + ", ".join(
+            f"{m:.3f}" for m in res["depth_plane_host_ms"]) + ")")
 
     reset_counts()
-    t0 = time.perf_counter()
-    digests = list(decode_gops_batched(data, lanes=2, sink="digest"))
-    res["digest_s"] = time.perf_counter() - t0
+    with RouteLog() as rl, IntraModes() as im:
+        t0 = time.perf_counter()
+        digests = list(decode_gops_batched(data, lanes=2, sink="digest"))
+        res["digest_s"] = time.perf_counter() - t0
     res["launches_digest"] = read_counts()
-    if not all(res["launches_digest"].values()):
-        raise AssertionError(f"a kernel or route never ran: "
-                             f"{res['launches_digest']}")
+    check_no_plain("1080p lockstep, digest", res["launches_digest"], rl,
+                   im.non_skip)
 
     with StageTimer() as st:
         t0 = time.perf_counter()
@@ -803,6 +988,7 @@ def phase_single(data, ref):
     if not res["pack"]["pinned"] or res["pack"]["uploads"] != len(ref):
         raise AssertionError(f"single-frame arena uploads: {res['pack']}")
     log_pack("single", "frame", res["pack"])
+    check_no_plain("1080p decode_annexb", res["launches"], rl, len(ref))
     if not all(res["launches"][n] for n in KERNELS):
         raise AssertionError(f"a kernel never ran: {res['launches']}")
     if len(frames) != len(ref):
@@ -828,7 +1014,11 @@ def phase_single(data, ref):
     for name, run in (("decode_annexb", decode_annexb),
                       ("lockstep", lambda d, **kw: decode_gops_batched(
                           d, lanes=2, **kw))):
-        want, got = list(run(small, device="cpu")), list(run(small))
+        want = list(run(small, device="cpu"))
+        reset_counts()
+        with RouteLog() as rl:
+            got = list(run(small))
+        check_no_plain(f"5x3 {name}", read_counts(), rl)
         if len(got) != len(want) or len(want) != 3:
             raise AssertionError(f"5x3 {name}: {len(got)} frames, want 3")
         for i, (a, b) in enumerate(zip(want, got)):
@@ -921,19 +1111,30 @@ def profiled(name, run):
     and copy intervals), the idle share 1 - busy / wall, the device ms of
     the top kernels by name, each kernel's device launches per wrapper
     call, and the host-to-device copies ("Memcpy HtoD") by source memory,
-    every arena upload required pinned."""
-    torch.cuda.synchronize()
-    reset_counts()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof, \
-            PackMeter() as pm:
-        t0 = time.perf_counter()
-        n = len(list(run()))
+    every arena upload required pinned.  A trace that holds fewer of a
+    kernel's device events than its wrapper calls (the trace can drop
+    events) is taken again, TRACE_TRIES runs in all."""
+    for attempt in range(1, TRACE_TRIES + 1):
         torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
+        reset_counts()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof, \
+                PackMeter() as pm:
+            t0 = time.perf_counter()
+            n = len(list(run()))
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+        calls = read_counts()
+        short = [k for k, sym in SYMBOLS.items()
+                 if sum(1 for e in dev if sym in e.name) < calls[k]]
+        if dev and not short:
+            break
+        log(f"[profile] {name}: trace {attempt} of {TRACE_TRIES} holds "
+            f"{len(dev)} device events, fewer than the launches of "
+            f"{short or 'any kernel'}")
     htod = upload_check(name, htod_copies(prof, name),
                         pm.summary()["arena_bytes"])
-    dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
     if not dev:
         raise RuntimeError("the trace holds no device time")
     busy = busy_us(dev) / 1e3
@@ -941,7 +1142,6 @@ def profiled(name, run):
     for e in dev:
         by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:PROFILE_TOP]
-    calls = read_counts()
     per_call, kernel_ms = {}, {}
     for k, sym in SYMBOLS.items():
         ev = [e for e in dev if sym in e.name]
@@ -993,9 +1193,16 @@ def phase_entry_points(data, ref):
     """decode_annexb_parallel (two worker threads, one GOP each) and the
     command-line app, both on cuda, against phase 3's CPU frames."""
     res = {}
-    t0 = time.perf_counter()
-    got = list(decode_annexb_parallel(data, n_workers=2))
-    res["parallel_s"] = time.perf_counter() - t0
+    reset_counts()
+    with RouteLog() as rl:
+        t0 = time.perf_counter()
+        got = list(decode_annexb_parallel(data, n_workers=2))
+        res["parallel_s"] = time.perf_counter() - t0
+    # two threads: the launch counts may lose an update, so only the
+    # routes are checked here
+    if read_counts()["intra_rounds"] or "frame" in rl.routes:
+        raise AssertionError(f"decode_annexb_parallel on cuda: "
+                             f"{read_counts()}, MC routes {rl.routes}")
     if len(got) != len(ref):
         raise AssertionError(f"parallel: {len(got)} frames, want {len(ref)}")
     for i, (a, b) in enumerate(zip(ref, got)):
@@ -1016,8 +1223,10 @@ def phase_entry_points(data, ref):
             for c in ("y", "cb", "cr"):
                 f.write(np.ascontiguousarray(getattr(fr, c)).tobytes())
     out = io.StringIO()
-    with contextlib.redirect_stdout(out):
+    reset_counts()
+    with contextlib.redirect_stdout(out), RouteLog() as rl:
         rc = cli.main([stream, "-y", yuv, "-b"])
+    check_no_plain("cli", read_counts(), rl)
     text = out.getvalue()
     os.remove(stream)
     os.remove(yuv)
@@ -1038,17 +1247,15 @@ WIDE_W, WIDE_H = 256, 32      # DCI 4K's width; the height cut to 32 rows
 def phase_wide():
     """A 4096-wide CABAC IPB stream (one closed GOP, IDR + P + B, at
     bench.py's density, max_level and intra_prob) through decode_annexb
-    and the lockstep driver (lanes=1) on cuda: past the MC load words,
-    so every inter step takes mc_frame; intra and deblocking run their
-    kernels.  Every frame byte-identical to the CPU path."""
+    and the lockstep driver (lanes=1) on cuda: the MC kernels on every
+    inter step (mc_frame never), intra.cu on every step with an intra mb
+    (the level rounds never), deblocking on every step.  Every frame
+    byte-identical to the CPU path."""
     t0 = time.perf_counter()
     data = streams.avcgen().gen_random_cabac_ipb_stream(
         WIDE_W, WIDE_H, n_gops=1, seed=44, closed=True, gop_pb=1,
         density=0.05, max_level=4, intra_prob=0.05)
-    res = {"stream_bytes": len(data), "gen_s": time.perf_counter() - t0,
-           "fits_kernel": M.mc_fits_kernel(WIDE_W, WIDE_H, 9)}
-    if res["fits_kernel"]:
-        raise AssertionError("the wide stream is inside the MC words")
+    res = {"stream_bytes": len(data), "gen_s": time.perf_counter() - t0}
     t0 = time.perf_counter()
     ref = list(decode_gops_batched(data, lanes=1, device="cpu"))
     res["cpu_s"] = time.perf_counter() - t0
@@ -1058,29 +1265,34 @@ def phase_wide():
              STAGES)):
         list(run())                    # warm-up, not counted
         reset_counts()
-        with RouteLog() as rl, StageTimer(spec) as st:
+        with RouteLog() as rl, IntraModes() as im, StageTimer(spec) as st:
             t0 = time.perf_counter()
             frames = list(run())
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
         launches = read_counts()
-        if rl.routes != ["frame", "frame"]:
-            raise AssertionError(f"wide {name}: MC routes {rl.routes}")
-        if launches["mc_luma"] or launches["mc_chroma"] or \
-                not launches["intra"] or not launches["deblock"]:
-            raise AssertionError(f"wide {name}: launches {launches}")
+        if rl.routes != ["kernels", "kernels"] \
+                or launches["deblock"] != len(ref):
+            raise AssertionError(f"wide {name}: MC routes {rl.routes}, "
+                                 f"launches {launches}")
+        check_no_plain(f"wide {name}", launches, rl,
+                       im.non_skip if name == "lockstep" else len(ref))
         check_frames(f"wide {name}", ref, frames)
         ms = st.ms()
         res[name] = {"routes": rl.routes, "launches": launches,
-                     "stage_ms": ms, "wall_s": wall, "frames": len(frames)}
+                     "intra_modes": im.modes, "stage_ms": ms,
+                     "wall_s": wall, "frames": len(frames)}
+        mc_ms = sum(ms[n] for n in MC_STAGES[1])
         log(f"[wide] {name} {16 * WIDE_W}x{16 * WIDE_H}: {len(frames)} "
             f"frames byte-identical to the cpu; MC route of each inter "
-            f"step {rl.routes}; mc_frame {ms['mc_frame']:.2f} ms, intra "
-            f"kernel {ms['intra_batch']:.2f} ms"
-            + (f" (+ level rounds {ms['intra_rounds']:.2f} ms)"
-               if ms["intra_rounds"] else "")
-            + f", deblock kernel {ms['deblock_batch']:.2f} ms over the "
-            f"decode; launches {launches}")
+            f"step {rl.routes}; MC {mc_ms:.2f} ms (pack_mc_params "
+            f"{ms['pack_mc_params']:.2f}, run_mc_kernels "
+            f"{ms['run_mc_kernels']:.2f}, combine_mc {ms['combine_mc']:.2f},"
+            f" mc_frame {ms['mc_frame']:.2f}), intra kernel "
+            f"{ms['intra_batch']:.2f} ms (level rounds "
+            f"{ms['intra_rounds']:.2f}), deblock kernel "
+            f"{ms['deblock_batch']:.2f} ms over the decode; launches "
+            f"{launches}")
     return res
 
 
@@ -1142,7 +1354,7 @@ def phase_frame(data, dev):
         res[tag + "_launches"] = read_counts()
         res[tag + "_routes"] = rl.routes
     launches = res["cuda_launches"]
-    if res["cuda_routes"] != ["kernels"] or any(
+    if res["cuda_routes"] != ["kernels"] or launches["intra_rounds"] or any(
             launches[k] != n for k, n in (("intra", 2), ("deblock", 2),
                                           ("mc_luma", 1), ("mc_chroma", 1))):
         raise AssertionError(f"decode_frame on cuda: routes "
@@ -1161,8 +1373,8 @@ def phase_oracle():
     IDR + 2 x (P + B)) decoded by the scalar numpy oracle on the host
     (backend="numpy", no code shared with the port's tensor path);
     decode_annexb and the lockstep driver on cuda byte-identical to it,
-    and the lockstep driver with a 33-slot ring (past the MC words' plane
-    field: every inter step takes mc_frame) on cuda and on the CPU."""
+    and the lockstep driver with a 33-slot ring (the MC kernels on every
+    inter step, mc_frame never) on cuda and on the CPU."""
     data = streams.avcgen().gen_random_cabac_ipb_stream(
         22, 18, n_gops=1, seed=5, closed=True, gop_pb=2, density=0.05,
         max_level=4, intra_prob=0.05)
@@ -1174,30 +1386,34 @@ def phase_oracle():
     log(f"[oracle] numpy backend: {len(gold)} frames of 352x288 in "
         f"{res['oracle_s']:.1f} s on the host")
     reset_counts()
-    check_frames("oracle: decode_annexb on cuda", gold,
-                 list(decode_annexb(data)))
-    check_frames("oracle: lockstep on cuda", gold,
-                 list(decode_gops_batched(data, lanes=2)))
+    with RouteLog() as rl:
+        check_frames("oracle: decode_annexb on cuda", gold,
+                     list(decode_annexb(data)))
+        check_frames("oracle: lockstep on cuda", gold,
+                     list(decode_gops_batched(data, lanes=2)))
     res["launches"] = read_counts()
+    check_no_plain("oracle", res["launches"], rl)
     saved = TB.RING_SLOTS
     TB.RING_SLOTS = 32
     try:
         check_frames("oracle: lockstep, 33-slot ring, cpu", gold,
                      list(decode_gops_batched(data, lanes=1, device="cpu")))
         reset_counts()
-        with RouteLog() as rl:
+        with RouteLog() as rl, IntraModes() as im:
             got = list(decode_gops_batched(data, lanes=1))
         res["ring33_launches"] = read_counts()
     finally:
         TB.RING_SLOTS = saved
     res["ring33_routes"] = rl.routes
-    if rl.routes != ["frame"] * 4 or res["ring33_launches"]["mc_luma"]:
+    if rl.routes != ["kernels"] * 4:
         raise AssertionError(f"33-slot ring: routes {rl.routes}, launches "
                              f"{res['ring33_launches']}")
+    check_no_plain("33-slot ring", res["ring33_launches"], rl, im.non_skip)
     check_frames("oracle: lockstep, 33-slot ring, cuda", gold, got)
     log(f"[oracle] decode_annexb and lockstep on cuda byte-identical to "
         f"the oracle (launches {res['launches']}); a 33-slot lockstep ring "
-        f"takes {rl.routes} on cuda, byte-identical on cuda and cpu")
+        f"takes {rl.routes} on cuda (launches {res['ring33_launches']}), "
+        f"byte-identical on cuda and cpu")
     return res
 
 
@@ -1207,14 +1423,16 @@ def phase_oracle():
 class ShardCounts:
     """Wraps batched.decode_batch_step, which decode_batch_step_sharded
     calls once a shard in shard order: each kernel's launches (read_counts)
-    summed by shard."""
+    summed by shard, and each shard's steps with intra work (a route
+    other than "skip": "intra_steps")."""
 
     def __init__(self, n):
         self.n = n
 
     def __enter__(self):
         self.saved = B.decode_batch_step
-        self.per = [dict.fromkeys(COUNTED, 0) for _ in range(self.n)]
+        self.per = [dict.fromkeys(COUNTED, 0) | {"intra_steps": 0}
+                    for _ in range(self.n)]
         self.calls = 0
 
         def rec(*a, **kw):
@@ -1223,8 +1441,9 @@ class ShardCounts:
             after = read_counts()
             shard = self.per[self.calls % self.n]
             self.calls += 1
-            for k in shard:
+            for k in COUNTED:
                 shard[k] += after[k] - before[k]
+            shard["intra_steps"] += kw["intra_mode"] != "skip"
             return out
         B.decode_batch_step = rec
         return self
@@ -1241,27 +1460,39 @@ MULTIHOST_WORKER = r"""
 import sys
 import numpy as np
 import torch.distributed as dist
+from edge264_tpu_torch.ops import intra as I
+from edge264_tpu_torch.ops import mc as M
 from edge264_tpu_torch.parallel.distributed import decode_stream_multihost
 port, rank, world, lanes, device, stream, out = sys.argv[1:8]
 dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
                         rank=int(rank), world_size=int(world))
 with open(stream, "rb") as f:
     data = f.read()
+mc_frame_calls = []
+real_mc_frame = M.mc_frame
+M.mc_frame = lambda *a, **kw: (mc_frame_calls.append(1)
+                              or real_mc_frame(*a, **kw))
 frames = list(decode_stream_multihost(
     data, lanes=int(lanes), device=None if device == "cuda" else device))
 dist.barrier()
 dist.destroy_process_group()
-np.savez(out, n=len(frames), **{f"{c}{i}": getattr(fr, c)
-                                for i, fr in enumerate(frames)
-                                for c in ("y", "cb", "cr")})
+counts = [I.intra_batch.launches, M.mc_luma.launches,
+          I.intra_rounds.launches, len(mc_frame_calls)]
+np.savez(out, n=len(frames), counts=np.array(counts),
+         **{f"{c}{i}": getattr(fr, c) for i, fr in enumerate(frames)
+            for c in ("y", "cb", "cr")})
 """
+# the order of a MULTIHOST_WORKER process's `counts`
+MULTIHOST_COUNTS = ("intra", "mc_luma", "intra_rounds", "mc_frame")
 
 
 def run_multihost(data, world, lanes, device, workdir, timeout):
     """Decode `data` with decode_stream_multihost in `world` processes
     (torch.distributed on gloo, 127.0.0.1, a free port); each process gets
-    `timeout` seconds, then is killed.  Returns per rank its frames as
-    (y, cb, cr) arrays; raises with the processes' output if one fails."""
+    `timeout` seconds, then is killed.  Returns (per rank its frames as
+    (y, cb, cr) arrays, per rank {name: count} of MULTIHOST_COUNTS: its
+    kernel launches, level-rounds calls and mc_frame calls); raises with
+    the processes' output if one fails."""
     os.makedirs(workdir, exist_ok=True)
     stream = os.path.join(workdir, "stream.264")
     with open(stream, "wb") as f:
@@ -1302,14 +1533,16 @@ def run_multihost(data, world, lanes, device, workdir, timeout):
     if rcs != [0] * world:
         raise RuntimeError(f"decode_stream_multihost processes: {rcs}\n"
                            + "\n".join(text))
-    frames = []
+    frames, counts = [], []
     for o in outs:
         with np.load(o) as z:
             frames.append([tuple(z[f"{c}{i}"] for c in ("y", "cb", "cr"))
                            for i in range(int(z["n"]))])
+            counts.append(dict(zip(MULTIHOST_COUNTS,
+                                   (int(v) for v in z["counts"]))))
         os.remove(o)
     os.remove(stream)
-    return frames
+    return frames, counts
 
 
 def phase_mesh(data, ref, idr_cpu, gpu):
@@ -1327,21 +1560,27 @@ def phase_mesh(data, ref, idr_cpu, gpu):
         list(decode_gops_batched(data, lanes=lanes, mesh=mesh,
                                  sink="digest"))       # warm-up, not counted
         reset_counts()
-        with ShardCounts(mesh.size) as sc:
+        with ShardCounts(mesh.size) as sc, RouteLog() as rl:
             t0 = time.perf_counter()
             frames = list(decode_gops_batched(data, lanes=lanes, mesh=mesh))
             secs = time.perf_counter() - t0
         launches = read_counts()
         check_frames(f"mesh {label}", ref, frames)
-        # every shard that holds a GOP runs every kernel and the rounds
+        check_no_plain(f"mesh {label}", launches, rl)
+        # every shard that holds a GOP runs every kernel, intra.cu on each
+        # of its steps with intra work, and never the level rounds
         for i, per in enumerate(sc.per[:n_gops]):
-            if not all(per[k] for k in KERNELS + ("intra_rounds",)):
+            if not all(per[k] for k in KERNELS) or per["intra_rounds"] \
+                    or per["intra"] != per["intra_steps"]:
                 raise AssertionError(f"mesh {label}: shard {i} launches "
                                      f"{per}")
-        t0 = time.perf_counter()
-        digests = list(decode_gops_batched(data, lanes=lanes, mesh=mesh,
-                                           sink="digest"))
-        dsecs = time.perf_counter() - t0
+        reset_counts()
+        with RouteLog() as rl:
+            t0 = time.perf_counter()
+            digests = list(decode_gops_batched(data, lanes=lanes, mesh=mesh,
+                                               sink="digest"))
+            dsecs = time.perf_counter() - t0
+        check_no_plain(f"mesh {label}, digest", read_counts(), rl)
         if len(digests) != len(ref):
             raise AssertionError(f"mesh {label}: {len(digests)} digests")
         for i, (a, d) in enumerate(zip(ref, digests)):
@@ -1377,7 +1616,8 @@ def phase_mesh(data, ref, idr_cpu, gpu):
     torch.cuda.synchronize()
     bsecs = time.perf_counter() - t0
     blaunch = read_counts()
-    if blaunch["intra"] != 2 or blaunch["deblock"] != 2:
+    if blaunch["intra"] != 2 or blaunch["deblock"] != 2 \
+            or blaunch["intra_rounds"]:
         raise AssertionError(f"frame batch launches {blaunch}")
     for c, (want, parts) in enumerate(zip(idr_cpu, got)):
         if not torch.equal(parts[0].cpu(), want):
@@ -1398,16 +1638,22 @@ def phase_mesh(data, ref, idr_cpu, gpu):
 
     # two processes, one GOP each
     t0 = time.perf_counter()
-    per_rank = run_multihost(data, 2, 1, "cuda",
-                             os.path.join(OUT_DIR, "multihost"), 300)
+    per_rank, counts = run_multihost(data, 2, 1, "cuda",
+                                     os.path.join(OUT_DIR, "multihost"), 300)
     msecs = time.perf_counter() - t0
     check_frames("decode_stream_multihost", ref,
                  [types.SimpleNamespace(y=y, cb=cb, cr=cr)
                   for frames in per_rank for y, cb, cr in frames])
-    res["multihost"] = {"s": msecs, "frames": [len(f) for f in per_rank]}
+    for r, c in enumerate(counts):
+        if c["intra_rounds"] or c["mc_frame"] or not c["intra"] \
+                or not c["mc_luma"]:
+            raise AssertionError(f"decode_stream_multihost rank {r}: {c}")
+    res["multihost"] = {"s": msecs, "frames": [len(f) for f in per_rank],
+                        "counts": counts}
     log(f"[mesh] decode_stream_multihost, 2 processes on cuda:0: "
         f"{[len(f) for f in per_rank]} frames by rank, byte-identical to the "
-        f"cpu in rank order; {msecs:.2f} s from spawn to exit, "
+        f"cpu in rank order, counts by rank {counts}; {msecs:.2f} s from "
+        f"spawn to exit, "
         f"{len(ref) / msecs:.2f} frames/s ({gpu}; two processes on one card: "
         f"no scaling measured)")
     return res
@@ -1436,9 +1682,18 @@ def main():
     steps = dec["steps"]
     for n, v in dec["stage_ms"].items():
         log(f"[stage] lockstep {n}: {v / steps:.2f} ms/step ({gpu})")
+    log(f"[stage] lockstep sum: {sum(dec['stage_ms'].values()) / steps:.2f}"
+        f" ms/step ({gpu})")
     for n, v in one["stage_ms"].items():
         log(f"[stage] single-frame {n}: {v / one['frames']:.2f} ms/frame "
             f"({gpu})")
+    log(f"[stage] single-frame sum: "
+        f"{sum(one['stage_ms'].values()) / one['frames']:.2f} ms/frame "
+        f"({gpu})")
+    log(f"[decode] lockstep intra route host ms a step: "
+        f"{sum(dec['intra_mode_host_ms']) / steps:.3f} (the CPU route's "
+        f"depth planes on the same flags: "
+        f"{sum(dec['depth_plane_host_ms']) / steps:.3f}) ({gpu})")
     for path in ("decode_annexb", "lockstep"):
         w = wide[path]
         log(f"[stage] wide {path}: " + ", ".join(

@@ -5,13 +5,20 @@
 // ::_chroma_kernel (driven by run_mc_kernels), which DMA a lane's whole
 // reference band into VMEM and place each block's samples with aligned
 // (16, 256) window loads, rolls and masks.  The input contract is kept
-// exactly: per 8x8 luma block, flags (_F_USED0/1, _F_UNIFORM, _F_PAIR,
-// _F_PAIRODD) and 2 lists x 4 quadrants x 2 packed int32 load words
-// (plane << 24 | y << 12 | x, negative = skip) from pack_mc_params, which
-// has already clamped every coordinate into the padded band.  Each arm
-// reads a block's rows straight from the lane's ring planes: luma the
-// rounded average of two half-pel planes {G, B, H, J} per sample, chroma
-// the 2x2 bilinear footprint (Cb/Cr interleaved, so the horizontal
+// field for field: per 8x8 luma block, flags (_F_USED0/1, _F_UNIFORM,
+// _F_PAIR, _F_PAIRODD) and 2 lists x 4 quadrants x a pair of int32 load
+// words from pack_mc_params, which has already clamped every coordinate
+// into the padded band.  The TPU's pair holds one plane << 24 | y << 12 |
+// x word per sample read (chroma: the position, then the phase), which
+// reaches 253 mbs and 31 ring slots.  Here the pair is a position word
+// (y << 15 | x) and a ring word (ring index << 8 | sel: luma's two
+// half-pel planes and B's offset from A, or chroma's eighth-pel phase),
+// both -1 = skip: the same bytes, and x, y below 2^15 reach the largest
+// frame the front end accepts (1023 x 1056 mbs) and the ring index any
+// ring the decoders grow, so every frame size and ring takes this kernel.
+// Each arm reads a block's rows straight from the lane's ring planes: luma
+// the rounded average of two half-pel planes {G, B, H, J} per sample,
+// chroma the 2x2 bilinear footprint (Cb/Cr interleaved, so the horizontal
 // neighbour is 2 bytes on).  Outputs: per list [K, 8*BR, 8*BC] (luma) or
 // [K, 4*BR, 8*BC] (chroma) uint8, zeros where a list is unused.
 //
@@ -80,12 +87,35 @@ __device__ __forceinline__ void load_group(const int* __restrict__ flg,
   __syncthreads();
 }
 
-// Byte offset in a lane's planes of row `ri` of load word w (plane,
-// y, x fields).
-__device__ __forceinline__ size_t word_offset(int w, int ri, int rows,
-                                              int pitch) {
-  return ((size_t)(w >> 24) * rows + ((w >> 12) & 0xFFF) + ri) * pitch +
-         (w & 0xFFF);
+// Byte offset in a lane's planes of row `ri` of a load at (plane, y, x);
+// size_t, as a lane's ring can pass 2^31 bytes.
+__device__ __forceinline__ size_t word_offset(size_t plane, int y, int x,
+                                              int ri, int rows, int pitch) {
+  return (plane * rows + y + ri) * pitch + x;
+}
+
+__device__ __forceinline__ int word_y(int pos) { return pos >> 15; }
+__device__ __forceinline__ int word_x(int pos) { return pos & 0x7FFF; }
+
+// The byte offsets of row ri of a luma load's two samples: A in half-pel
+// plane pA at the position word's (y, x), B in plane pB at (dy, dx) in
+// {-1, 0, 1} from it (ring word: index << 8 | pA << 6 | pB << 4 |
+// (dy + 1) << 2 | (dx + 1)).
+__device__ __forceinline__ void luma_offsets(int pos, int ring, int ri,
+                                             int ph, int pwb, size_t* oa,
+                                             size_t* ob) {
+  const size_t plane = (size_t)(ring >> 8) * 4;
+  const int y = word_y(pos), x = word_x(pos);
+  *oa = word_offset(plane + ((ring >> 6) & 3), y, x, ri, ph, pwb);
+  *ob = word_offset(plane + ((ring >> 4) & 3), y + ((ring >> 2) & 3) - 1,
+                    x + (ring & 3) - 1, ri, ph, pwb);
+}
+
+// The byte offset of row ri of a chroma load (ring word: index << 8 |
+// phase).
+__device__ __forceinline__ size_t chroma_offset(int pos, int ring, int ri,
+                                                int phc, int pwc2) {
+  return word_offset(ring >> 8, word_y(pos), word_x(pos), ri, phc, pwc2);
 }
 
 // The 4 bytes at byte offset o (any alignment) of a ring row: one or two
@@ -108,22 +138,26 @@ __device__ __forceinline__ uint2 bytes8(const uint8_t* __restrict__ p,
 }
 
 // Luma: 4 (quadrant arm) or 8 (joint arms) samples of row ri, from column
-// ci of the load word pair (pka, pkb): the rounded average of the two
-// half-pel planes' samples, zero where the word is unused.
+// ci of the load word pair (pka, pkb: position and ring words): the
+// rounded average of the two half-pel planes' samples, zero where the
+// pair is unused.
 __device__ __forceinline__ uint32_t luma4(const uint8_t* __restrict__ bk,
                                           int pka, int pkb, int ri, int ph,
                                           int pwb) {
   if (pka < 0) return 0u;
-  return __vavgu4(bytes4(bk, word_offset(pka, ri, ph, pwb)),
-                  bytes4(bk, word_offset(pkb, ri, ph, pwb)));
+  size_t oa, ob;
+  luma_offsets(pka, pkb, ri, ph, pwb, &oa, &ob);
+  return __vavgu4(bytes4(bk, oa), bytes4(bk, ob));
 }
 
 __device__ __forceinline__ uint2 luma8(const uint8_t* __restrict__ bk,
                                        int pka, int pkb, int ri, int ci,
                                        int ph, int pwb) {
   if (pka < 0) return make_uint2(0u, 0u);
-  const uint2 a = bytes8(bk, word_offset(pka, ri, ph, pwb) + ci);
-  const uint2 b = bytes8(bk, word_offset(pkb, ri, ph, pwb) + ci);
+  size_t oa, ob;
+  luma_offsets(pka, pkb, ri, ph, pwb, &oa, &ob);
+  const uint2 a = bytes8(bk, oa + ci);
+  const uint2 b = bytes8(bk, ob + ci);
   return make_uint2(__vavgu4(a.x, b.x), __vavgu4(a.y, b.y));
 }
 
@@ -159,7 +193,7 @@ __device__ __forceinline__ uint32_t chroma4(const uint8_t* __restrict__ bk,
                                             int phc, int pwc2) {
   if (pka < 0) return 0u;
   const Weights w = chroma_weights(pkb);
-  const size_t o = word_offset(pka, ri, phc, pwc2);
+  const size_t o = chroma_offset(pka, pkb, ri, phc, pwc2);
   const unsigned sh = (o & 3) * 8;
   const uint32_t* p = reinterpret_cast<const uint32_t*>(bk + (o & ~size_t(3)));
   const uint32_t* q = p + pwc2 / 4;
@@ -178,7 +212,7 @@ __device__ __forceinline__ uint2 chroma8(const uint8_t* __restrict__ bk,
                                          int pwc2) {
   if (pka < 0) return make_uint2(0u, 0u);
   const Weights w = chroma_weights(pkb);
-  const size_t o = word_offset(pka, ri, phc, pwc2);
+  const size_t o = chroma_offset(pka, pkb, ri, phc, pwc2);
   const unsigned sh = (o & 3) * 8;
   const uint32_t* p = reinterpret_cast<const uint32_t*>(bk + (o & ~size_t(3)));
   const uint32_t* q = p + pwc2 / 4;

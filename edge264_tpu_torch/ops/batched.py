@@ -156,11 +156,12 @@ def decode_batch_step(arenas, refs, *, layout, meta_off, mbW, mbH,
     refs       (refL [K,S1,4,ph,pw_b] u8, refC [K,S1,phc,2*pwc_pad] u8),
                updated IN PLACE and returned
     intra_mode "skip" (no intra or PCM mb in any lane) | "rounds{R}"
-               (every lane intra-sparse, depths <= R) | "sheared" (the
-               wavefront: intra_batch); see frame._intra_dispatch
+               (every lane intra-sparse, depths <= R: the level rounds on
+               the CPU, intra.cu on a card) | "sheared" (the wavefront:
+               intra_batch); see frame._intra_dispatch
     mc         False for steps without inter prediction (step 0); else
-               the route of mc.mc_predict: the MC kernels where their
-               load words reach, mc_frame past that
+               mc.mc_predict: the MC kernels (their plain versions on the
+               CPU) at every geometry and ring size
     emit       "flat" ([K, Y+C+C] u8) | "digest" ([K, 2] int64 uint32
                words)
     crop       (top, right, bottom, left) for the digest

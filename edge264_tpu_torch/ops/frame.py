@@ -12,19 +12,25 @@ step (batched.decode_batch_step), runs the one routine `_frame`:
         -> deblock_batch -> [blend_recovered] -> uint8
 
 Every function takes planes, scaling matrices and rings with a leading
-lane dimension K, as the rest of the port does.  Deblocking runs the CUDA
-kernel on the card and the plain version on the CPU; MC takes the route
-`mc.mc_predict` picks by geometry (the JAX functions always use
-`mc_frame`, whose results the kernels' route equals).  Intra takes the
-wavefront (the CUDA kernel on the card, the plain sheared scan on the CPU)
-unless the caller passes level-compressed tables (`itab`, from
-`intra.intra_level_tables`), as in the JAX functions: then the
-level-gather scan `intra.intra_scan` runs, on the CPU only.  The JAX
-package builds `itab` only where it has no wavefront kernel (its
-`use_pallas()` is false, i.e. off the TPU); the port keeps that rule by
-device: tables on the CPU, and on the card always `intra.cu`, so `itab`
-with planes on a card raises `ValueError` (`intra_scan` is plain
-PyTorch, and the card runs no plain version of a kernel).
+lane dimension K, as the rest of the port does.  The card runs no plain
+version of a kernel: deblocking, MC (`mc.mc_predict`, pack -> kernels ->
+combine at every geometry and ring) and intra run their CUDA kernels on
+the card and their plain versions on the CPU.  Intra by route
+(`_intra_dispatch`) and device:
+
+    route        planes on the CPU               planes on a card
+    "skip"       identity                        identity, no launch
+    "sheared"    intra_scan_sheared (plain)      intra.cu (intra_batch)
+    "rounds{R}"  intra_rounds, the level rounds  intra.cu (intra_batch)
+    "levels"     intra_scan over `itab`          raises ValueError
+
+The lockstep driver names "rounds{R}" for intra-sparse P/B steps on the
+CPU, where the level rounds hold the port to the JAX package's own
+route; on a card it names only "skip" or "sheared".  `itab` (level
+tables from `intra.intra_level_tables`) selects "levels", as in the JAX
+functions, which build it only where they have no wavefront kernel (off
+the TPU); the port keeps that rule by device, so `itab` with planes on a
+card raises instead of running the plain level-gather scan there.
 """
 
 from __future__ import annotations
@@ -50,11 +56,12 @@ def _mode_flags(layout):
 
 def _intra_dispatch(y, cb, cr, res_y, res_cb, res_cr, p, intra_mode, mbW,
                     mbH, has_t8, has_pcm, itab=None):
-    """The intra route: "skip" is the identity, "rounds{R}" the level
-    rounds with the depth plane recomputed from mb_flags on the device,
-    "levels" the level-gather scan over `itab` (CPU planes only; raises
-    `ValueError` for planes on another device, which take "sheared"),
-    "sheared" the wavefront (the CUDA kernel on the card)."""
+    """The intra route (the module's table): "skip" is the identity;
+    "rounds{R}" the level rounds with the depth plane recomputed from
+    mb_flags, on the CPU only; "levels" the level-gather scan over `itab`,
+    on the CPU only (`ValueError` for planes elsewhere); "sheared", and
+    "rounds{R}" off the CPU, `intra_batch` (intra.cu on a card, the plain
+    sheared scan on the CPU)."""
     if intra_mode == "skip":
         return y, cb, cr
     if intra_mode == "levels":
@@ -63,11 +70,11 @@ def _intra_dispatch(y, cb, cr, res_y, res_cb, res_cr, p, intra_mode, mbW,
                              "runs on the CPU only; on a card pass "
                              "itab=None (intra.cu)")
         return intra_scan(y, cb, cr, res_y, res_cb, res_cr, p, itab)
-    if intra_mode.startswith("rounds"):
+    if intra_mode.startswith("rounds") and y.device.type == "cpu":
         return intra_rounds(y, cb, cr, res_y, res_cb, res_cr, p, None, mbW,
                             mbH, int(intra_mode[len("rounds"):]), has_t8,
                             has_pcm)
-    if intra_mode == "sheared":
+    if intra_mode == "sheared" or intra_mode.startswith("rounds"):
         return intra_batch(y, cb, cr, res_y, res_cb, res_cr, p, mbW, mbH,
                            has_t8, has_pcm)
     raise ValueError(f"intra_mode={intra_mode!r}")

@@ -13,6 +13,12 @@ own: gathers and masked scatters of each level's mbs), and of
 `kernels/csrc/intra.cu` on CUDA tensors and the plain
 `intra_scan_sheared` on CPU tensors.
 
+Which runs where (ops/frame._intra_dispatch): on a card every frame or
+step with intra work takes `intra.cu`, whatever its route's name; the
+plain versions below run on the CPU only, where `intra_rounds` (the
+lockstep's intra-sparse P/B steps) and `intra_scan` (the single-frame
+path's intra-sparse frames) follow the JAX package's own CPU routes.
+
 Both plain versions reconstruct batches of macroblock tiles whose causal
 neighbours (left, top-left, top, top-right) are already final, through
 one shared routine (`_recon`):
@@ -525,9 +531,9 @@ def intra_rounds(y, cb, cr, res_y, res_cb, res_cr, p, lvl, mbW, mbH,
     arithmetic is `_recon`'s, as in the wavefront.  lvl [K, mbH, mbW]
     int32, or None to recompute it here from mb_flags (`rounds` fixpoint
     steps; the caller has checked that every depth is <= rounds).  Plain
-    PyTorch on every device (XLA, not Pallas, in the JAX package); each
-    call adds one to `intra_rounds.launches`, so a run shows which steps
-    took this route."""
+    PyTorch (XLA, not Pallas, in the JAX package), which the decode paths
+    run on the CPU only; each call adds one to `intra_rounds.launches`,
+    so a run shows which steps took this route (none on a card)."""
     K = y.shape[0]
     N = mbH * mbW
     if lvl is None:

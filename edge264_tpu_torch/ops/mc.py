@@ -3,19 +3,31 @@
 Ports of `jaxdec.mc_band_dims`, `make_ref_planes`, `_mc_meta`,
 `_mc_combine`, `mc_frame` (with `_mc_luma_list`, `_mc_chroma_list`) and
 of `pallas_mc.pack_mc_params`, `run_mc_kernels` and `combine_mc`.
-`mc_predict` takes one of two routes, chosen by geometry before anything
-launches (`mc_fits_kernel`, the counterpart of `pallas_mc.fits_pallas`):
+`mc_predict`, the decode paths' inter prediction, always runs
 
-    "kernels": pack_mc_params -> run_mc_kernels (mc_luma + mc_chroma)
-               -> combine_mc
-    "frame":   mc_frame, plain gathers from the ring
+    pack_mc_params -> run_mc_kernels (mc_luma + mc_chroma) -> combine_mc
 
 `mc_luma` / `mc_chroma` launch `kernels/csrc/mc.cu` on CUDA tensors and
 run their plain versions (`mc_luma_plain` / `mc_chroma_plain`, the same
-per-sample arms in tensor ops) on CPU tensors.  The kernels' load words
-hold 12-bit x and y fields and a 7-bit plane field, so a frame more than
-253 mbs across or down, or a ring of 32 slots or more, takes the "frame"
-route on every device, as the JAX package sends it to `jaxdec.mc_frame`.
+per-sample arms in tensor ops) on CPU tensors.  Each load (per block,
+list and quadrant) is a pair of int32 words:
+
+    position word  y << 15 | x            x, y below 2^15
+    ring word      ring index << 8 | sel  sel: the luma pair's half-pel
+                   planes and B's offset from A, pA << 6 | pB << 4 |
+                   (dyB + 1) << 2 | (dxB + 1), or the chroma phase
+                   dy << 3 | dx
+    both -1 where the quadrant's list is unused
+
+so they reach every frame the front end accepts (1023 x 1056 mbs) and
+rings of up to 2^23 slots in the bytes of the JAX package's pairs, whose
+words each hold `plane << 24 | y << 12 | x` for one sample (luma: A and
+B; chroma: the position, then the phase) and reach 253 mbs and 31 ring
+slots.  The two carry the same fields where both reach.  The JAX package
+sends a frame past its words to `jaxdec.mc_frame`; here `mc_frame`, its
+port (plain gathers, no packing shared with the kernels), is the
+reference that the kernels' route is held to, and no decode path calls
+it.
 
 Reference ring layout (shared with the JAX package): luma [4, ph, pw_b]
 uint8 half-pel planes {0:G, 1:B, 2:H, 3:J}; chroma INTERLEAVED
@@ -192,47 +204,51 @@ def _sel_phase6(phase):
     return tab[phase.long()].unbind(-1)
 
 
-_FIELD_MAX = 0xFFF       # x and y fields of a load word (12 bits each)
-_PLANE_END = 128         # plane field: bits 24..30, below the sign bit
+# load words (the module's docstring)
+_XY_SHIFT, _XY_MASK, _RING_SHIFT = 15, 0x7FFF, 8
 
 
-def mc_fits_kernel(mbW, mbH, S1):
-    """Whether every load word pack_mc_params can build for this geometry
-    and a ring of S1 slots holds its fields: the largest x and y that the
-    clamps allow (luma x <= pw_b - 5 and y <= ph - 5 after the +1 phase
-    offsets, chroma 2*x <= 2*pwc_pad - 8 and y <= phc - 4) within 12 bits,
-    and S1*4 + 3 below 128 for the luma plane field (4*ring index + plane;
-    one slot of margin over (S1-1)*4 + 3, the same gate as JAX's
-    fits_pallas, S1*4 < 128)."""
-    ph, pw_b, phc, pwc_pad = mc_band_dims(mbW, mbH)
-    return (max(pw_b - 5, 2 * pwc_pad - 8) <= _FIELD_MAX
-            and max(ph - 5, phc - 4) <= _FIELD_MAX
-            and S1 * 4 + 3 < _PLANE_END)
+def load_fields(pos, ring, luma):
+    """The ring reads of load word pairs (position and ring words, int
+    tensors of one shape): luma [(plane, y, x) of sample A, of sample B],
+    plane = 4 * ring index + half-pel plane; chroma [(ring index, y, x)]
+    of the 2x2 footprint's top-left byte."""
+    y, x = pos >> _XY_SHIFT, pos & _XY_MASK
+    slot = ring >> _RING_SHIFT
+    if not luma:
+        return [(slot, y, x)]
+    return [(4 * slot + ((ring >> 6) & 3), y, x),
+            (4 * slot + ((ring >> 4) & 3), y + ((ring >> 2) & 3) - 1,
+             x + (ring & 3) - 1)]
 
 
-def _pack_load_luma(sidx, y, x, p1, oy, ox, used):
-    pk = ((sidx * 4 + p1) << 24) | ((y + oy) << 12) | (x + ox)
-    return torch.where(used, pk, -1)
+def _words(sidx, y, x, sel, used):
+    """The (position, ring) word pair of loads at (y, x) from ring index
+    sidx, -1 where unused."""
+    return (torch.where(used, (y << _XY_SHIFT) | x, -1),
+            torch.where(used, (sidx << _RING_SHIFT) | sel, -1))
 
 
-def pack_mc_params(p, slot_maps, has_b, mbW, mbH, S1):
+def _luma_words(sidx, y, x, s, used):
+    """The word pair of luma loads at clamped (y, x) with their phases'
+    _MC_TAB columns s = (p1, ox1, oy1, p2, ox2, oy2): sample A at the +1
+    offsets (ox1, oy1) of plane p1, B at (ox2, oy2) of plane p2."""
+    p1, ox1, oy1, p2, ox2, oy2 = s
+    sel = (p1 << 6) | (p2 << 4) | ((oy2 - oy1 + 1) << 2) | (ox2 - ox1 + 1)
+    return _words(sidx, y + oy1, x + ox1, sel, used)
+
+
+def pack_mc_params(p, slot_maps, has_b, mbW, mbH):
     """Build (flags [K,BR,1,BC], pk_luma [K,BR,1,BC*16],
     pk_chroma [K,BR//2,1,2*BC*16]), all int32: the kernels' input
-    contract, identical to pallas_mc.pack_mc_params.
-
-    S1 is the slot count of the ring the words index (slot_maps' values
-    are below it).  Raises ValueError when mc_fits_kernel(mbW, mbH, S1)
-    is false: the words would overflow.
+    contract, pallas_mc.pack_mc_params' with the port's load words (the
+    module's docstring): the same flags, and the same fields in every
+    word pair.
 
     BR = 2*mbH 8x8-block rows, BC = padded block columns (W_b/8).
-    Per block: 2 lists x 4 quadrants x 2 int32; uniform blocks carry
+    Per block: 2 lists x 4 quadrants x 2 words; uniform blocks carry
     their joint 8x8 (4x4 chroma) load words in the q0 slots, and the even
     block of a 16x8 pair its joint 16x8 luma words."""
-    if not mc_fits_kernel(mbW, mbH, S1):
-        raise ValueError(
-            f"pack_mc_params: a {mbW}x{mbH}-mb frame with a {S1}-slot ring "
-            f"is past the load words' 12-bit x/y and 7-bit plane fields; "
-            f"mc_predict sends it to mc_frame")
     ph, pw_b, phc, pwc_pad = mc_band_dims(mbW, mbH)
     W_b = max(-(-16 * mbW // 128) * 128, 128)
     BR, bc = 2 * mbH, 2 * mbW
@@ -270,16 +286,14 @@ def pack_mc_params(p, slot_maps, has_b, mbW, mbH, S1):
         px = (gx4 + (mvx >> 2) + PADL).clamp(0, pw_b - 6)
         py = (gy4 + (mvy >> 2) + PADL).clamp(0, ph - 6)
         s = _sel_phase6((mvy & 3) * 4 + (mvx & 3))
-        qA = _quads(_pack_load_luma(sidx, py, px, s[0], s[2], s[1], used))
-        qB = _quads(_pack_load_luma(sidx, py, px, s[3], s[5], s[4], used))
+        qA, qB = (_quads(w) for w in _luma_words(sidx, py, px, s, used))
         # ---- luma joint 8x8 (uniform arm; quadrant-0 cell params)
         u0, s0 = used[:, ::2, ::2], sidx[:, ::2, ::2]
         mx0, my0 = mvx[:, ::2, ::2], mvy[:, ::2, ::2]
         px8 = (gx4[::2, ::2] + (mx0 >> 2) + PADL).clamp(0, pw_b - 10)
         py8 = (gy4[::2, ::2] + (my0 >> 2) + PADL).clamp(0, ph - 10)
         s8 = _sel_phase6((my0 & 3) * 4 + (mx0 & 3))
-        pk8A = _pack_load_luma(s0, py8, px8, s8[0], s8[2], s8[1], u0)
-        pk8B = _pack_load_luma(s0, py8, px8, s8[3], s8[5], s8[4], u0)
+        pk8A, pk8B = _luma_words(s0, py8, px8, s8, u0)
         qA[..., 0] = torch.where(uni_all, pk8A, qA[..., 0])
         qB[..., 0] = torch.where(uni_all, pk8B, qB[..., 0])
         # ---- luma joint 16x8 (pair arm; even-block q0 slots, wider x
@@ -289,10 +303,7 @@ def pack_mc_params(p, slot_maps, has_b, mbW, mbH, S1):
         px16 = (gx4[::2, ::4] + (mx16 >> 2) + PADL).clamp(0, pw_b - 18)
         py16 = (gy4[::2, ::4] + (my16 >> 2) + PADL).clamp(0, ph - 10)
         s16t = _sel_phase6((my16 & 3) * 4 + (mx16 & 3))
-        pk16A = _pack_load_luma(s16, py16, px16, s16t[0], s16t[2],
-                                s16t[1], u16)
-        pk16B = _pack_load_luma(s16, py16, px16, s16t[3], s16t[5],
-                                s16t[4], u16)
+        pk16A, pk16B = _luma_words(s16, py16, px16, s16t, u16)
         qA[:, :, 0::2, 0] = torch.where(pairU, pk16A, qA[:, :, 0::2, 0])
         qB[:, :, 0::2, 0] = torch.where(pairU, pk16B, qB[:, :, 0::2, 0])
         pk_l.append(torch.stack([qA, qB], -1).reshape(K, BR, bc, 8))
@@ -300,14 +311,13 @@ def pack_mc_params(p, slot_maps, has_b, mbW, mbH, S1):
         # ---- chroma per-cell (2x2)
         pxc = ((gx4 >> 1) + (mvx >> 3) + PADC).clamp(0, pwc_pad - 4)
         pyc = ((gy4 >> 1) + (mvy >> 3) + PADC).clamp(0, phc - 4)
-        cqA = _quads(torch.where(used, (sidx << 24) | (pyc << 12) | (2 * pxc),
-                                 -1))
-        cqB = _quads(((mvy & 7) << 3) | (mvx & 7))
+        cqA, cqB = (_quads(w) for w in _words(
+            sidx, pyc, 2 * pxc, ((mvy & 7) << 3) | (mvx & 7), used))
         # ---- chroma joint 4x4 (uniform arm)
         pxc8 = ((gx4[::2, ::2] >> 1) + (mx0 >> 3) + PADC) \
             .clamp(0, pwc_pad - 8)
         pyc8 = ((gy4[::2, ::2] >> 1) + (my0 >> 3) + PADC).clamp(0, phc - 8)
-        c8A = torch.where(u0, (s0 << 24) | (pyc8 << 12) | (2 * pxc8), -1)
+        c8A = _words(s0, pyc8, 2 * pxc8, 0, u0)[0]
         cqA[..., 0] = torch.where(uni_all, c8A, cqA[..., 0])
         pk_c.append(torch.stack([cqA, cqB], -1).reshape(K, BR, bc, 8))
 
@@ -339,8 +349,9 @@ def _block_coords(rows_per_blk, H, Wb, dev):
 
 
 def mc_luma_plain(flg, pk, band, n_lists):
-    """flg [K,BR,BC], pk [K,BR,BC*16] int32, band [K,S1*4,ph,pw_b] uint8
-    -> n_lists x [K, 8*BR, 8*BC] uint8 (quarter-pel luma per list)."""
+    """flg [K,BR,BC], pk [K,BR,BC*16] int32, band
+    [K,S1*4,ph,pw_b] uint8 -> n_lists x [K, 8*BR, 8*BC] uint8
+    (quarter-pel luma per list)."""
     K, BR, BC = flg.shape
     _, nplanes, ph, pwb = band.shape
     dev = flg.device
@@ -358,18 +369,17 @@ def mc_luma_plain(flg, pk, band, n_lists):
     words = pk.reshape(K, BR, BC, 16)
     flat = band.reshape(-1)
 
-    def sample(w, on):
-        w = w.long()
-        off = (((kk * nplanes + (w >> 24)) * ph + ((w >> 12) & 0xFFF) + ri)
-               * pwb + (w & 0xFFF) + ci)
+    def sample(plane, wy, wx, on):
+        off = ((kk * nplanes + plane) * ph + wy + ri) * pwb + wx + ci
         return flat[torch.where(on, off, 0)].to(I32)
 
     outs = []
     for l in range(n_lists):
-        pka = words[kk, r, b, l * 8 + 2 * q]
-        pkb = words[kk, r, b, l * 8 + 2 * q + 1]
+        pka = words[kk, r, b, l * 8 + 2 * q].long()
+        pkb = words[kk, r, b, l * 8 + 2 * q + 1].long()
         on = (((f >> l) & 1) == 1) & (pka >= 0)
-        v = (sample(pka, on) + sample(pkb, on) + 1) >> 1
+        sa, sb = (sample(*ld, on) for ld in load_fields(pka, pkb, True))
+        v = (sa + sb + 1) >> 1
         outs.append(torch.where(on, v, 0).to(U8))
     return outs
 
@@ -393,10 +403,10 @@ def mc_chroma_plain(flg, pk, band, n_lists):
     outs = []
     for l in range(n_lists):
         pka = words[kk, br, b, l * 8 + 2 * q].long()
-        pkb = words[kk, br, b, l * 8 + 2 * q + 1]
+        pkb = words[kk, br, b, l * 8 + 2 * q + 1].long()
         on = (((f >> l) & 1) == 1) & (pka >= 0)
-        off = (((kk * S1 + (pka >> 24)) * phc + ((pka >> 12) & 0xFFF) + ri)
-               * pwc2 + (pka & 0xFFF) + ci)
+        (slot, wy, wx), = load_fields(pka, pkb, False)
+        off = ((kk * S1 + slot) * phc + wy + ri) * pwc2 + wx + ci
         off = torch.where(on, off, 0)
 
         def at(d):
@@ -502,10 +512,10 @@ def combine_mc(p, slot_maps, flat, has_b):
 
 
 # ---------------------------------------------------------------------------
-# The plain route (jaxdec.mc_frame): per 4x4 cell and list, two 4x4 window
-# gathers from the luma ring and one 3x3 (both components) gather from the
-# chroma ring.  Start indices are clamped as lax.gather's CLIP mode clamps
-# them (each window inside the ring).
+# The reference by plain gathers (jaxdec.mc_frame): per 4x4 cell and list,
+# two 4x4 window gathers from the luma ring and one 3x3 (both components)
+# gather from the chroma ring.  Start indices are clamped as lax.gather's
+# CLIP mode clamps them (each window inside the ring).
 
 def _mc_luma_list(refL, sidx, mvx, mvy, gx4, gy4):
     """Luma MC for one list over all 4x4 cells of K frames.  refL
@@ -566,7 +576,9 @@ def mc_frame(p, refL, refC, slot_maps, has_b=True):
     jaxdec.mc_frame batched over the lanes.  refL [K,S1,4,ph,pw_b], refC
     [K,S1,phc,2*pwc_pad] uint8 rings; slot_maps [K,32] int32 DPB slot ->
     ring index; has_b False skips list 1.  Returns (pred_y, pred_cb,
-    pred_cr, mask_y, mask_c), as combine_mc does."""
+    pred_cr, mask_y, mask_c), as combine_mc does: the independent
+    reference (no packing, no kernel arms) that the kernels' route is
+    held to; no decode path calls it."""
     BH, BW = p["refslot"].shape[1:3]
     dev = refL.device
     gx4 = (torch.arange(BW, dtype=I32, device=dev) * 4)[None, :] \
@@ -582,20 +594,11 @@ def mc_frame(p, refL, refC, slot_maps, has_b=True):
     return _mc_combine(p, preds, has_b)
 
 
-def mc_route(mbW, mbH, S1):
-    """The inter-prediction route of a geometry and a ring of S1 slots:
-    "kernels" (mc.cu through pack_mc_params) or "frame" (mc_frame).
-    mc_predict's one decision, which a caller can watch by wrapping it."""
-    return "kernels" if mc_fits_kernel(mbW, mbH, S1) else "frame"
-
-
 def mc_predict(p, slot_maps, refL, refC, has_b, mbW, mbH):
-    """Inter prediction of K frames from their rings ([K,S1,...]) by the
-    route mc_route picks, before anything launches.  Returns (pred_y,
-    pred_cb, pred_cr, mask_y, mask_c)."""
-    S1 = refL.shape[1]
-    if mc_route(mbW, mbH, S1) == "frame":
-        return mc_frame(p, refL, refC, slot_maps, has_b)
-    flg, pkl, pkc = pack_mc_params(p, slot_maps, has_b, mbW, mbH, S1)
+    """Inter prediction of K frames from their rings ([K,S1,...]): the
+    kernels' route (mc.cu on a card, the plain versions on the CPU) at
+    every geometry and ring size.  Returns (pred_y, pred_cb, pred_cr,
+    mask_y, mask_c)."""
+    flg, pkl, pkc = pack_mc_params(p, slot_maps, has_b, mbW, mbH)
     flat = run_mc_kernels(flg, pkl, pkc, refL, refC, has_b, mbW, mbH)
     return combine_mc(p, slot_maps, flat, has_b)

@@ -35,7 +35,7 @@ from ..native import EV_FORMAT, EV_FRAME_DONE, EV_UNPIN, NativeDecoder
 from ..ops import arena as A
 from ..ops import batched as B
 from ..ops.intra import intra_round_plane
-from ..ops.tables import MBF_BLEND, MBF_IPCM, MBF_T8x8
+from ..ops.tables import MBF_BLEND, MBF_INTRA, MBF_IPCM, MBF_T8x8
 from .gop import split_gops
 from .mesh import DecodeMesh
 
@@ -198,12 +198,19 @@ def _decode_all(gops, lanes, sink, mesh, pad):
         yield from _decode_group(group, sink, mesh)
 
 
-def _intra_mode(tabs):
-    """The step's intra route from the live lanes' depth planes
-    (intra_round_plane): "skip" when no lane has an intra mb, "rounds{R}"
-    when every lane is intra-sparse (R the largest bucket; the buckets
-    nest), else "sheared": one dense lane (an IDR) sends the whole step
-    to the wavefront, as the lanes share one step."""
+def _intra_mode(flags_list, mbW, mbH, on_cpu):
+    """The step's intra route from the live lanes' mb_flags.  On the CPU,
+    from their depth planes (intra_round_plane), as the JAX package's
+    lockstep loop chooses: "skip" when no lane has an intra mb,
+    "rounds{R}" when every lane is intra-sparse (R the largest bucket; the
+    buckets nest), else "sheared": one dense lane (an IDR) sends the whole
+    step to the wavefront, as the lanes share one step.  On a card every
+    step with an intra mb takes intra.cu whatever the route's name, so
+    only that is computed there: "skip" or "sheared"."""
+    if not on_cpu:
+        return ("sheared" if any((f & MBF_INTRA).any() for f in flags_list)
+                else "skip")
+    tabs = [intra_round_plane(f, mbW, mbH) for f in flags_list]
     if any(t is None for t in tabs):
         return "sheared"
     if all(int(t[0].max()) == 0 for t in tabs):
@@ -274,7 +281,7 @@ def _decode_group(group, sink, mesh):
                 ln.S = S2
             S = S2
 
-        planes_list, tabs = [], []
+        planes_list, lane_flags = [], []
         sm4s, sm8s, ring_slots, slot_maps = [], [], [], []
         for ln in lane_objs:
             if len(ln.done_slots) > step:
@@ -290,7 +297,7 @@ def _decode_group(group, sink, mesh):
                 if np.asarray(pl.wp).any() or np.asarray(pl.wp8).any():
                     keep |= {"wp", "wp8"}
                 planes_list.append(pl)
-                tabs.append(intra_round_plane(flags, mbW, mbH))
+                lane_flags.append(flags)
                 sm4s.append(np.asarray(pl.sm4, np.int32))
                 sm8s.append(B.scaling8(pl.sm8))
                 # only REFERENCE frames occupy ring slots (non-refs are
@@ -313,7 +320,8 @@ def _decode_group(group, sink, mesh):
                 ring_slots.append(S)
                 slot_maps.append(np.zeros(32, np.int32))
 
-        intra_mode = _intra_mode(tabs)
+        intra_mode = _intra_mode(lane_flags, mbW, mbH,
+                                 devices[0].type == "cpu")
         # borrows uploaded at earlier steps are safe to release now; then
         # kick off the NEXT step's entropy so it overlaps this step's
         # upload and device work (native calls only while the lane

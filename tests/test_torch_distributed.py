@@ -104,8 +104,9 @@ def test_two_processes_on_gloo(tmp_path):
     two GOPs on the CPU; each is killed after WORKER_TIMEOUT s.  Their
     frames in rank order == the JAX package's numpy backend."""
     data = _stream()
-    per_rank = run_multihost(data, 2, 2, "cpu", str(tmp_path),
-                             WORKER_TIMEOUT)
+    per_rank, counts = run_multihost(data, 2, 2, "cpu", str(tmp_path),
+                                     WORKER_TIMEOUT)
     assert [len(f) for f in per_rank] == [6, 6]
+    assert [c["mc_frame"] for c in counts] == [0, 0]
     _assert_same(_planes(jax_decode_annexb(data, backend="numpy")),
                  [f for frames in per_rank for f in frames])

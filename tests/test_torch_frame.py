@@ -110,9 +110,10 @@ def test_whole_frame_functions_match_jax(kind):
 
 
 def test_frame_route_past_the_words():
-    """decode_frame_inter takes mc_frame where the kernels' words do not
-    reach (here: a ring of 32 slots) and the kernels' route below it;
-    both frames equal the JAX function's."""
+    """decode_frame_inter takes the kernels' route below and past the
+    JAX package's load words (a ring of 31, 32 and 65 slots), never
+    mc_frame; every frame equals the JAX function's (which takes
+    jaxdec.mc_frame at every ring size)."""
     frames = decoded_planes(_stream("cabac_ipb"))
     (pl0, sm4, sm8, slot0, _), (pl1, sm4b, sm8b, _, _) = frames[:2]
     jp0, jp = J.planes_to_jax(pl0), J.planes_to_jax(pl1)
@@ -122,11 +123,12 @@ def test_frame_route_past_the_words():
                                    mbW, mbH)
     l4, ch = (np.asarray(a) for a in J.make_ref_planes(y, cb, cr))
     smap = np.zeros(32, np.int32)
-    smap[slot0] = 1
-    for S1, route in ((31, "kernels"), (32, "frame")):
+    for S1 in (31, 32, 65):
+        # the reference in the ring's last slot: the largest plane field
+        smap[slot0] = S1 - 1
         ringL = np.zeros((S1,) + l4.shape, np.uint8)
         ringC = np.zeros((S1,) + ch.shape, np.uint8)
-        ringL[1], ringC[1] = l4, ch
+        ringL[S1 - 1], ringC[S1 - 1] = l4, ch
         want = J.decode_frame_inter_jit(
             jp, jnp.asarray(sm4b), jnp.asarray(sm8b), jnp.asarray(ringL),
             jnp.asarray(ringC), jnp.asarray(smap), mbW, mbH)
@@ -135,7 +137,7 @@ def test_frame_route_past_the_words():
                 tp, torch.as_tensor(sm4b)[None], torch.as_tensor(sm8b)[None],
                 torch.from_numpy(ringL)[None], torch.from_numpy(ringC)[None],
                 torch.as_tensor(smap)[None], mbW, mbH)
-        assert rl.routes == [route]
+        assert rl.routes == ["kernels"]
         _assert_same(want, got, S1)
 
 

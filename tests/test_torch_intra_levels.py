@@ -231,6 +231,36 @@ def test_levels_route_refuses_planes_off_the_cpu():
                           tabs)
 
 
+@pytest.mark.parametrize("device", ["cpu", "meta"])
+@pytest.mark.parametrize("route", ["skip", "sheared", "rounds2", "rounds8"])
+def test_intra_route_by_device(device, route, monkeypatch):
+    """_intra_dispatch on planes on the CPU and off it ("meta", standing
+    in for a card): "rounds{R}" takes the plain level rounds on the CPU
+    only and intra_batch (intra.cu on a card) elsewhere; "sheared" always
+    intra_batch; "skip" neither."""
+    calls = []
+
+    def rec(name):
+        def fn(y, cb, cr, *a):
+            calls.append((name, a[-5:] if name == "intra_rounds" else a[-4:]))
+            return y, cb, cr
+        return fn
+
+    monkeypatch.setattr(F, "intra_batch", rec("intra_batch"))
+    monkeypatch.setattr(F, "intra_rounds", rec("intra_rounds"))
+    y = torch.zeros((1, 64, 96), dtype=torch.int32, device=device)
+    c = torch.zeros((1, 32, 48), dtype=torch.int32, device=device)
+    out = F._intra_dispatch(y, c, c, y, c, c, {}, route, 6, 4, True, False)
+    assert out[0] is y
+    if route == "skip":
+        assert calls == []
+    elif route.startswith("rounds") and device == "cpu":
+        assert calls == [("intra_rounds", (6, 4, int(route[6:]), True,
+                                           False))]
+    else:
+        assert calls == [("intra_batch", (6, 4, True, False))]
+
+
 def _route_log(module, names, routes):
     """Wrap module's arena frame functions: append, per call, whether the
     call carried level tables (itab, positional as JaxBackend and

@@ -15,7 +15,7 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from chip_smoke import RouteLog, deblock_inputs, decoded_planes, \
-    intra_case, intra_inputs, mc_inputs  # noqa: E402
+    intra_case, intra_inputs, mc_case, mc_inputs  # noqa: E402
 from edge264_tpu_torch import streams  # noqa: E402
 from edge264_tpu_torch.api import decode_annexb, find_start_code  # noqa
 from edge264_tpu_torch.convert import CONDITIONAL, planes_to_torch  # noqa
@@ -271,21 +271,23 @@ def test_intra_kernel_refuses_rows_past_its_mask(dev):
 
 
 def test_wide_stream_on_card_matches_cpu(dev):
-    """256 mbs across (DCI 4K's width), past the MC load words: both
-    paths take mc_frame on every inter step and the intra and deblock
-    kernels on every step, byte-identical to the CPU."""
+    """256 mbs across (DCI 4K's width), past the JAX package's MC load
+    words: both paths run the MC kernels on every inter step (mc_frame
+    never) and the deblock kernel on every step, byte-identical to the
+    CPU."""
     data = streams.avcgen().gen_random_cabac_ipb_stream(
         256, 2, n_gops=1, seed=44, closed=True, gop_pb=1, density=0.05,
         max_level=4, intra_prob=0.05)
     for run in (decode_annexb,
                 lambda d, **kw: decode_gops_batched(d, lanes=1, **kw)):
         want = list(run(data, device="cpu"))
-        n = (M.mc_luma.launches, D.deblock_batch.launches)
+        n = D.deblock_batch.launches, I.intra_rounds.launches
         with RouteLog() as rl:
             got = list(run(data))
-        assert rl.routes == ["frame", "frame"]
-        assert M.mc_luma.launches == n[0]
-        assert D.deblock_batch.launches == n[1] + 3
+        assert rl.routes == ["kernels", "kernels"]
+        assert rl.launches == {"mc_luma": 2, "mc_chroma": 2}
+        assert D.deblock_batch.launches == n[0] + 3
+        assert I.intra_rounds.launches == n[1]
         assert len(got) == len(want) == 3
         for a, b in zip(want, got):
             for c in ("y", "cb", "cr"):
@@ -293,8 +295,9 @@ def test_wide_stream_on_card_matches_cpu(dev):
 
 
 def test_ring_of_33_slots_on_card_matches_cpu(dev, monkeypatch):
-    """A lockstep ring of 32 + 1 slots is past the load words' plane
-    field: its inter steps take mc_frame on the card too."""
+    """A lockstep ring of 32 + 1 slots, past the JAX package's load
+    words' plane field: its inter steps run the MC kernels on the card
+    too (mc_frame never), byte-identical to the CPU."""
     from edge264_tpu_torch.parallel import batch as TB
     monkeypatch.setattr(TB, "RING_SLOTS", 32)
     data = b"".join(streams.avcgen().gen_random_cabac_ipb_stream(
@@ -303,11 +306,64 @@ def test_ring_of_33_slots_on_card_matches_cpu(dev, monkeypatch):
     want = list(decode_gops_batched(data, lanes=2, device="cpu"))
     with RouteLog() as rl:
         got = list(decode_gops_batched(data, lanes=2))
-    assert rl.routes == ["frame", "frame"]
+    assert rl.routes == ["kernels", "kernels"]
+    assert rl.launches == {"mc_luma": 2, "mc_chroma": 2}
     assert len(got) == len(want) == 6
     for a, b in zip(want, got):
         for c in ("y", "cb", "cr"):
             assert np.array_equal(getattr(a, c), getattr(b, c))
+
+
+def test_lockstep_on_card_runs_no_level_rounds(dev, monkeypatch):
+    """The lockstep driver on the card: intra-sparse P/B steps, which take
+    the level rounds on the CPU, run intra.cu (one launch a step with an
+    intra mb) and never intra_rounds; the frames equal the CPU's."""
+    from edge264_tpu_torch.parallel import batch as TB
+    data = b"".join(streams.avcgen().gen_random_cabac_ipb_stream(
+        12, 8, n_gops=1, seed=60 + s, closed=True, gop_pb=2, density=0.1,
+        max_level=4, intra_prob=0.03) for s in (0, 1))
+    cpu_modes, card_modes = [], []
+    real = TB._intra_mode
+
+    def rec(flags_list, mbW, mbH, on_cpu):
+        mode = real(flags_list, mbW, mbH, on_cpu)
+        (cpu_modes if on_cpu else card_modes).append(mode)
+        return mode
+
+    monkeypatch.setattr(TB, "_intra_mode", rec)
+    want = list(decode_gops_batched(data, lanes=2, device="cpu"))
+    assert any(m.startswith("rounds") for m in cpu_modes)
+    n = I.intra_rounds.launches, I.intra_batch.launches
+    got = list(decode_gops_batched(data, lanes=2))
+    assert I.intra_rounds.launches == n[0]
+    assert I.intra_batch.launches - n[1] == \
+        sum(m != "skip" for m in card_modes)
+    assert [m == "skip" for m in card_modes] == \
+        [m == "skip" for m in cpu_modes]
+    assert len(got) == len(want) == 10
+    for a, b in zip(want, got):
+        for c in ("y", "cb", "cr"):
+            assert np.array_equal(getattr(a, c), getattr(b, c))
+
+
+# (K, mbW, mbH, S): DCI 4K in a short frame, a 33-slot ring, the front
+# end's widest row and tallest column
+MC_REACH = [(1, 256, 4, 8), (2, 24, 5, 32), (1, 1023, 2, 8), (1, 2, 1056, 8)]
+
+
+@pytest.mark.parametrize("K,mbW,mbH,S", MC_REACH)
+def test_mc_route_matches_mc_frame_past_the_jax_words(dev, K, mbW, mbH, S):
+    """Where the JAX package's int32 words do not reach, the MC kernels'
+    route (mc_predict: pack -> mc.cu -> combine) equals mc_frame, the
+    plain gathers that share no packing with it, and each kernel equals
+    its plain version."""
+    p, smap, L, C = mc_case(dev, 70 + mbW, K, mbW, mbH, S)
+    n = M.mc_luma.launches, M.mc_chroma.launches
+    got = M.mc_predict(p, smap, L, C, True, mbW, mbH)
+    assert (M.mc_luma.launches, M.mc_chroma.launches) == (n[0] + 1,
+                                                          n[1] + 1)
+    _assert_equal(M.mc_frame(p, L, C, smap, True), got)
+    _mc_check(_mc_cases(dev, 80 + mbW, K, S, mbW, mbH, True))
 
 
 @pytest.mark.parametrize("K", [16, 24])

@@ -21,6 +21,7 @@ from edge264_tpu_torch.ops import arena as A  # noqa: E402
 from edge264_tpu_torch.ops import batched as B  # noqa: E402
 from edge264_tpu_torch.native import EV_FRAME_DONE, NativeDecoder  # noqa
 from edge264_tpu_torch.ops.batched import host_frame_digest  # noqa: E402
+from edge264_tpu_torch.parallel import batch as TB  # noqa: E402
 from edge264_tpu_torch.parallel.batch import \
     decode_gops_batched  # noqa: E402
 
@@ -122,6 +123,26 @@ def test_intra_route_per_step_matches_jax(uneven, monkeypatch):
     list(decode_gops_batched(data, lanes=2, device="cpu"))
     assert got == want
     assert got[0] == "sheared" and any(m.startswith("rounds") for m in got)
+
+
+@pytest.mark.parametrize("share", [0.0, 0.02, 0.2, 0.6])
+def test_card_intra_route_needs_no_depth_plane(share, monkeypatch):
+    """Off the CPU the step's intra route is "skip" (no lane has an intra
+    mb) or "sheared" (intra.cu, whatever the CPU would name), from the
+    flags alone: no depth plane is built.  On the CPU the same flags skip
+    exactly when the card's route does."""
+    rng = np.random.RandomState(int(share * 100))
+    flags = [np.where(rng.rand(8, 12) < share, 1 | 32, 64 | 32)
+             .astype(np.int32) for _ in range(2)]
+    cpu = TB._intra_mode(flags, 12, 8, True)
+
+    def no_plane(*a):
+        raise AssertionError("a depth plane was built off the CPU")
+
+    monkeypatch.setattr(TB, "intra_round_plane", no_plane)
+    card = TB._intra_mode(flags, 12, 8, False)
+    assert card == ("skip" if share == 0 else "sheared")
+    assert (cpu == "skip") == (card == "skip")
 
 
 def test_dryrun_stream_high_mvc_matches_jax():

@@ -1,8 +1,9 @@
 """Lockstep ring growth: a lane whose live references outnumber the
 starting ring slots grows the ring by doubling, byte-identical to the JAX
 package's decode_gops_batched (as tests/test_batch_lanes.py checks it
-against the serial decoder); and a ring of 33 slots, past the MC load
-words, decodes on mc_frame as the JAX driver does."""
+against the serial decoder); and a ring of 33 slots, past the JAX
+package's MC load words (it decodes on jaxdec.mc_frame there), stays on
+the port's kernels' route."""
 
 import numpy as np
 import pytest
@@ -38,10 +39,11 @@ def test_ring_growth_matches_jax(monkeypatch):
 
 
 def test_ring_of_33_slots_takes_mc_frame(monkeypatch):
-    """A lockstep ring of 32 + 1 slots is past the MC load words' plane
-    field, so every inter step takes mc_frame, as the JAX driver (ring
-    size from E264T_RING_S) takes jaxdec.mc_frame past fits_pallas; the
-    frames stay byte-identical to the JAX package's."""
+    """A lockstep ring of 32 + 1 slots is past the JAX package's load
+    words (its driver, ring size from E264T_RING_S, takes jaxdec.mc_frame
+    past fits_pallas); the port's words reach it, so every inter step
+    takes the kernels' route and mc_frame never runs, and the frames stay
+    byte-identical to the JAX package's."""
     data = b"".join(streams.avcgen().gen_random_cabac_ipb_stream(
         6, 4, n_gops=1, seed=50 + s, closed=True, gop_pb=1, density=0.1,
         max_level=4, intra_prob=0.1) for s in (0, 1))
@@ -50,7 +52,7 @@ def test_ring_of_33_slots_takes_mc_frame(monkeypatch):
     with RouteLog() as rl:
         got = list(TB.decode_gops_batched(data, lanes=2, device="cpu"))
     want = list(jax_decode(data, lanes=2))
-    assert rl.routes == ["frame", "frame"]
+    assert rl.routes == ["kernels", "kernels"]
     assert len(got) == len(want) == 6
     for a, b in zip(want, got):
         for n in ("y", "cb", "cr"):

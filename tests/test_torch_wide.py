@@ -1,9 +1,10 @@
-"""Frames wider than the MC kernels' load words reach: a 256x2-mb CABAC
-IPB stream (4096 samples across, the width of DCI 4K) through the port's
-decode_annexb and lockstep driver on the CPU == the JAX package's
+"""Frames wider than the JAX package's MC load words reach: a 256x2-mb
+CABAC IPB stream (4096 samples across, the width of DCI 4K) through the
+port's decode_annexb and lockstep driver on the CPU == the JAX package's
 decode_annexb(backend="jax") and decode_gops_batched, which take
-jaxdec.mc_frame there.  Every inter step takes the port's "frame" route
-(mc.mc_frame), chosen by mc.mc_fits_kernel before anything launches."""
+jaxdec.mc_frame there.  The port's wider words keep every inter step on
+the kernels' route (pack_mc_params -> the kernels' plain versions on the
+CPU -> combine_mc); mc.mc_frame never runs."""
 
 import functools
 
@@ -18,7 +19,6 @@ from edge264_tpu.parallel.batch import \
     decode_gops_batched as jax_decode  # noqa: E402
 from edge264_tpu_torch import streams  # noqa: E402
 from edge264_tpu_torch.api import decode_annexb  # noqa: E402
-from edge264_tpu_torch.ops import mc as M  # noqa: E402
 from edge264_tpu_torch.parallel.batch import \
     decode_gops_batched  # noqa: E402
 
@@ -36,7 +36,6 @@ def _wide():
 
 @pytest.mark.parametrize("path", ["decode_annexb", "lockstep"])
 def test_wide_stream_matches_jax(path):
-    assert not M.mc_fits_kernel(MBW, MBH, 9)
     data = _wide()
     if path == "decode_annexb":
         want = list(jax_decode_annexb(data, backend="jax"))
@@ -52,4 +51,4 @@ def test_wide_stream_matches_jax(path):
         for n in ("y", "cb", "cr"):
             assert np.array_equal(np.asarray(getattr(a, n)),
                                   getattr(b, n)), (i, n)
-    assert rl.routes == ["frame", "frame"]
+    assert rl.routes == ["kernels", "kernels"]
