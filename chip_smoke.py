@@ -81,7 +81,24 @@ Phases (any failure raises and exits non-zero):
               frames in rank order byte-identical to phase 3's.  Seconds
               and frames/s of each: two shards or two processes on one
               card measure no scaling.
- 11. report   per-stage device ms (unpack_planes among them) and frames/s
+ 11. classes  every class of the port's stream corpus (edge264_tpu_torch/
+              corpus.py: CAVLC, High 8x8 / scaling / PCM, explicit and
+              implicit weights, temporal direct, multi-slice, deblocking
+              off and at slice edges with alpha/beta offsets, long-term
+              references, MMCO and list reordering, MVC, levels past
+              int8, concealment, QP 0 and 51; two at 1080p) through
+              decode_annexb and the lockstep driver (lanes=2) on cuda:
+              frames, ids, crop, mb_errors and both MVC views
+              byte-identical to the port's CPU path and, for the small
+              classes, to backend="numpy" (the lockstep GOP by GOP; on the
+              truncated class the lockstep to the CPU lockstep only); no
+              plain version of a kernel on the card; intra.cu on frames
+              with 8x8 and PCM mbs, deblock.cu with edges off inside a
+              frame, every optional arena plane uploaded and a lockstep
+              step sent as int16, each at least once.  The CPU goldens run
+              in worker processes beside the card decodes.  One line a
+              class: frames, seconds and launches of each path.
+ 12. report   per-stage device ms (unpack_planes among them) and frames/s
               of both paths, the wide stream's stages, then the `kernels`
               JSON line, the card's name and power limit, and the final
               JSON line.  Details also go to chiprun_out/chip_smoke.json.
@@ -103,7 +120,7 @@ import torch
 from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
-from edge264_tpu_torch import cli, native, streams
+from edge264_tpu_torch import cli, corpus, native, streams
 from edge264_tpu_torch.api import decode_annexb, find_start_code
 from edge264_tpu_torch.convert import ALIGN, CONDITIONAL, PLANE_KEYS, \
     planes_to_torch
@@ -119,7 +136,8 @@ from edge264_tpu_torch.ops import mc as M
 from edge264_tpu_torch.parallel import batch as TB
 from edge264_tpu_torch.parallel import decode_batch_sharded, make_decode_mesh
 from edge264_tpu_torch.parallel.batch import decode_gops_batched
-from edge264_tpu_torch.parallel.gop import decode_annexb_parallel
+from edge264_tpu_torch.parallel.gop import decode_annexb_parallel, \
+    split_gops
 
 MBW, MBH, K, S = 120, 68, 2, 8
 REPO = os.path.dirname(os.path.abspath(__file__))
@@ -373,10 +391,14 @@ def queued_ms(fn, reps):
                        "the last call was issued")
 
 
-def deblock_inputs(dev, seed=11, K=K, mbW=MBW, mbH=MBH):
+def deblock_inputs(dev, seed=11, K=K, mbW=MBW, mbH=MBH,
+                   random_flags=False):
     """tests/test_pallas_deblock.py-style random frames and planes, 1080p
-    by default (no mb edge flags on the frame border).  Returns (y, cb,
-    cr, planes, bs_v, bs_h)."""
+    by default (no mb edge flags on the frame border).  Every edge on and
+    the 8x8 transform on the intra mbs; with random_flags, each mb's left,
+    top and inner edge bits and its transform-8x8 bit at random (edges
+    off inside the frame, as disable_deblocking_filter_idc 1 and 2 give).
+    Returns (y, cb, cr, planes, bs_v, bs_h)."""
     g = torch.Generator(device=dev).manual_seed(seed)
 
     def ri(lo, hi, shape):
@@ -384,12 +406,17 @@ def deblock_inputs(dev, seed=11, K=K, mbW=MBW, mbH=MBH):
                              dtype=torch.int32)
 
     H, W = 16 * mbH, 16 * mbW
-    db = torch.full((K, mbH, mbW), 7, dtype=torch.int32, device=dev)
+    if random_flags:
+        db = ri(0, 8, (K, mbH, mbW))
+        flags = ri(0, 2, (K, mbH, mbW)) | ri(0, 2, (K, mbH, mbW)) * 8
+    else:
+        db = torch.full((K, mbH, mbW), 7, dtype=torch.int32, device=dev)
+        flags = ri(0, 2, (K, mbH, mbW)) * 9
     db[:, :, 0] &= ~1
     db[:, 0, :] &= ~2
     p = {"qp": ri(10, 45, (K, mbH, mbW, 4)),
          "deblock_ab": ri(-2, 3, (K, mbH, mbW, 2)), "deblock": db,
-         "mb_flags": ri(0, 2, (K, mbH, mbW)) * 9}
+         "mb_flags": flags}
     return (ri(0, 255, (K, H, W)), ri(0, 255, (K, H // 2, W // 2)),
             ri(0, 255, (K, H // 2, W // 2)), p,
             ri(0, 5, (K, 4 * mbH, 4 * mbW)), ri(0, 5, (K, 4 * mbH, 4 * mbW)))
@@ -589,6 +616,14 @@ def phase_kernels(dev):
                           plain_ms=plain_ms, bytes=nbytes, ops=ops)
     log(f"[kernels] deblock: exact; {ms:.3f} ms (device {dms:.4f} ms) vs "
         f"plain {plain_ms:.3f} ms")
+    # random edge and transform-8x8 bits: the kernel's edge-off arms
+    y, cb, cr, pd, bs_v, bs_h = deblock_inputs(dev, 19, random_flags=True)
+    check_equal("deblock random edge and t8 flags",
+                D.deblock_batch(y.clone(), cb.clone(), cr.clone(), pd, bs_v,
+                                bs_h, MBW, MBH),
+                D.deblock_scan(y, cb, cr, pd, bs_v, bs_h, MBW, MBH))
+    log("[kernels] deblock exact on random edge and transform-8x8 flags "
+        "(1080p, K=2)")
 
     p, frames = intra_case(dev, 13)
     want = I.intra_scan_sheared(*frames, p, MBW, MBH)
@@ -1659,6 +1694,203 @@ def phase_mesh(data, ref, idr_cpu, gpu):
     return res
 
 
+# ---------------------------------------------------------------------------
+# phase 11: every stream class of the corpus through both paths
+
+OPTIONAL_PLANES = ("coef_y8", "i8_modes", "pcm_y", "pcm_c", "mb_errors",
+                   "slice_id", "wp", "wp8")
+CLASS_WORKERS = 5                # CPU golden processes (the card has 8 cores)
+
+
+def class_goldens(name):
+    """In a worker process: the class's stream and its CPU goldens, the
+    port's CPU paths (device="cpu") and, for the small classes, the numpy
+    oracle (backend="numpy") on the stream and on each of its GOPs alone
+    (what the lockstep's fresh decoder a GOP decodes).  The 1080p
+    classes are one GOP each, so their CPU lockstep is the golden of both
+    card paths."""
+    torch.set_num_threads(2 if name in corpus.CARD_CLASSES else 1)
+    t0 = time.perf_counter()
+    data = corpus.build(name)
+    out = {"data": data, "gen_s": time.perf_counter() - t0}
+    t0 = time.perf_counter()
+    out["cpu_lockstep"] = list(decode_gops_batched(data, lanes=2,
+                                                   device="cpu"))
+    if name in corpus.CARD_CLASSES:
+        out["cpu_single"] = out["cpu_lockstep"]
+    else:
+        out["cpu_single"] = list(decode_annexb(data, device="cpu"))
+        out["numpy"] = list(decode_annexb(data, backend="numpy"))
+        gops = split_gops(data)
+        out["numpy_by_gop"] = out["numpy"] if len(gops) == 1 else [
+            f for g in gops for f in decode_annexb(g, backend="numpy")]
+    out["cpu_s"] = time.perf_counter() - t0
+    return out
+
+
+def check_views(name, want, got):
+    """Frame count, frame ids, crop, mb_errors and both MVC views."""
+    if len(got) != len(want) or not want:
+        raise AssertionError(f"{name}: {len(got)} frames, want {len(want)}")
+    for i, (a, b) in enumerate(zip(want, got)):
+        if (a.frame_id, a.frame_id_mvc, a.crop_offsets) != \
+                (b.frame_id, b.frame_id_mvc, b.crop_offsets):
+            raise AssertionError(f"{name} frame {i}: ids or crop differ")
+        for c in ("y", "cb", "cr", "y_mvc", "cb_mvc", "cr_mvc",
+                  "mb_errors"):
+            x, y = getattr(a, c), getattr(b, c)
+            if (x is None) != (y is None) or (
+                    x is not None and not np.array_equal(x, y)):
+                raise AssertionError(f"{name} frame {i} {c} differs")
+
+
+class ArmLog:
+    """Records, for each card launch of intra.cu and deblock.cu through
+    the whole-frame routine (ops.frame), the arms its planes reach:
+    has_t8 / has_pcm with an intra-8x8 / PCM mb in the frame, and deblock
+    edges off inside the frame (some mb edge or inner edge bit clear
+    away from the border) with or without edges on beside them.  Each
+    arena packed in the block: its present optional planes, and whether
+    its levels went as int16 (`int16_tags`: the tag of each run that
+    packed one)."""
+
+    def __init__(self):
+        self.intra_t8 = self.intra_pcm = 0
+        self.deblock_off = self.deblock_mixed = 0
+        self.planes = set()
+        self.int16_tags = set()
+        self.tag = None
+
+    def __enter__(self):
+        self.saved = (F.intra_batch, F.deblock_batch, A.pack_planes_batch)
+
+        def intra(y, cb, cr, res_y, res_cb, res_cr, p, mbW, mbH,
+                  has_t8=True, has_pcm=True):
+            if y.is_cuda:
+                fl = p["mb_flags"]
+                self.intra_t8 += has_t8 and bool(
+                    ((fl & 9) == 9).any())
+                self.intra_pcm += has_pcm and bool(((fl & 4) > 0).any())
+            return self.saved[0](y, cb, cr, res_y, res_cb, res_cr, p, mbW,
+                                 mbH, has_t8, has_pcm)
+
+        def deblock(y, cb, cr, p, bs_v, bs_h, mbW, mbH):
+            if y.is_cuda:
+                db = p["deblock"]
+                off = torch.cat([(db[:, :, 1:] & 1).flatten() == 0,
+                                 (db[:, 1:, :] & 2).flatten() == 0,
+                                 (db & 4).flatten() == 0])
+                self.deblock_off += bool(off.any())
+                self.deblock_mixed += bool(off.any() and not off.all())
+            return self.saved[1](y, cb, cr, p, bs_v, bs_h, mbW, mbH)
+
+        def pack(planes_list, *a, **kw):
+            buf, layout, off = self.saved[2](planes_list, *a, **kw)
+            for k, dt, _shape, o, _m in layout:
+                if o == -1:
+                    continue
+                self.planes.add(k)
+                if k in A.COEF_PLANES and dt == "int16":
+                    self.int16_tags.add(self.tag)
+            return buf, layout, off
+        F.intra_batch, F.deblock_batch, A.pack_planes_batch = \
+            intra, deblock, pack
+        return self
+
+    def __exit__(self, *exc):
+        F.intra_batch, F.deblock_batch, A.pack_planes_batch = self.saved
+
+
+def phase_classes():
+    """Every class of the port's stream corpus (edge264_tpu_torch/
+    corpus.py: CAVLC, High 8x8 / scaling / PCM, weighted prediction,
+    multi-slice and deblocking off, long-term references, MVC, levels past
+    int8, concealment; two at 1080p) through decode_annexb and the
+    lockstep driver (lanes=2) on cuda.  Every frame byte-identical to the
+    port's CPU path and, for the small classes, to the numpy oracle (the
+    lockstep to the oracle GOP by GOP; on the truncated class the lockstep
+    only to the CPU lockstep: it does not blend recovered mbs); no plain
+    version of a kernel on the card.  The goldens are computed in worker
+    processes while the card decodes."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor, as_completed
+
+    names = corpus.CARD_CLASSES + corpus.CPU_CLASSES   # longest first
+    res = {}
+    t_phase = time.perf_counter()
+    with ArmLog() as arms, ProcessPoolExecutor(
+            CLASS_WORKERS,
+            mp_context=multiprocessing.get_context("spawn")) as ex:
+        futs = {ex.submit(class_goldens, n): n for n in names}
+        for fut in as_completed(futs):
+            name = futs[fut]
+            gold = fut.result()
+            data = gold["data"]
+            row = {"frames": len(gold["cpu_single"]),
+                   "gen_s": gold["gen_s"], "cpu_s": gold["cpu_s"]}
+            for path, run, want, oracle in (
+                    ("decode_annexb", lambda: decode_annexb(data),
+                     gold["cpu_single"], gold.get("numpy")),
+                    ("lockstep",
+                     lambda: decode_gops_batched(data, lanes=2),
+                     gold["cpu_lockstep"],
+                     None if name == "truncated_concealment"
+                     else gold.get("numpy_by_gop"))):
+                arms.tag = (name, path)
+                reset_counts()
+                with RouteLog() as rl, IntraModes() as im:
+                    t0 = time.perf_counter()
+                    got = list(run())
+                    torch.cuda.synchronize()
+                    secs = time.perf_counter() - t0
+                launches = read_counts()
+                check_no_plain(f"{name} {path}", launches, rl,
+                               im.non_skip if path == "lockstep" else None)
+                if not (launches["intra"] and launches["deblock"]):
+                    raise AssertionError(f"{name} {path}: launches "
+                                         f"{launches}")
+                check_views(f"{name} {path}: cuda vs cpu", want, got)
+                if oracle is not None:
+                    check_views(f"{name} {path}: cuda vs numpy", oracle,
+                                got)
+                row[path] = {"s": secs, "launches": launches}
+            res[name] = row
+            log(f"[classes] {name}: {row['frames']} frames, byte-identical"
+                f" to the cpu" + ("" if name in corpus.CARD_CLASSES
+                                  else " and the numpy oracle")
+                + f"; decode_annexb {row['decode_annexb']['s']:.2f} s "
+                f"{row['decode_annexb']['launches']}, lockstep "
+                f"{row['lockstep']['s']:.2f} s "
+                f"{row['lockstep']['launches']}; cpu goldens "
+                f"{row['cpu_s']:.1f} s")
+    missing = set(OPTIONAL_PLANES) - arms.planes
+    if missing or not (arms.intra_t8 and arms.intra_pcm
+                       and arms.deblock_off and arms.deblock_mixed) \
+            or not any(tag[1] == "lockstep" for tag in arms.int16_tags
+                       if tag):
+        raise AssertionError(
+            f"classes: arms not reached: planes never uploaded {missing}, "
+            f"intra.cu with an i8 / PCM frame {arms.intra_t8} / "
+            f"{arms.intra_pcm}, deblock.cu with edges off inside "
+            f"{arms.deblock_off} (beside edges on {arms.deblock_mixed}), "
+            f"int16 arenas {arms.int16_tags}")
+    summary = {"intra_launches_t8": arms.intra_t8,
+               "intra_launches_pcm": arms.intra_pcm,
+               "deblock_launches_edges_off": arms.deblock_off,
+               "deblock_launches_mixed": arms.deblock_mixed,
+               "optional_planes": sorted(set(OPTIONAL_PLANES)
+                                         & arms.planes),
+               "int16_runs": sorted(map(list, arms.int16_tags)),
+               "s": time.perf_counter() - t_phase}
+    log(f"[classes] {len(names)} classes in {summary['s']:.1f} s: intra.cu "
+        f"on {arms.intra_t8} launches with i8 mbs and {arms.intra_pcm} "
+        f"with PCM mbs, deblock.cu on {arms.deblock_off} with edges off "
+        f"inside the frame ({arms.deblock_mixed} beside edges on), every "
+        f"optional plane uploaded, int16 levels in "
+        f"{summary['int16_runs']}")
+    return {"classes": res, "summary": summary}
+
+
 def main():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: no CUDA device")
@@ -1678,6 +1910,7 @@ def main():
     report["frame"], idr_cpu = phase_frame(data, dev)
     report["oracle"] = phase_oracle()
     report["mesh"] = phase_mesh(data, ref, idr_cpu, gpu)
+    report["classes"] = phase_classes()
 
     steps = dec["steps"]
     for n, v in dec["stage_ms"].items():
@@ -1705,6 +1938,9 @@ def main():
         f"({gpu})")
     log(f"[single] decode_annexb frames/s: "
         f"{one['frames'] / one['frames_s']:.2f} ({gpu})")
+    log(f"[classes] {len(report['classes']['classes'])} corpus classes "
+        f"through both paths in {report['classes']['summary']['s']:.1f} s "
+        f"({gpu})")
     for tag, r, unit in (("decode", dec, "step"), ("single", one, "frame")):
         p = r["pack"]
         log(f"[{tag}] arena {sum(p['arena_bytes']) / p['uploads']:,.0f} "
@@ -1729,6 +1965,10 @@ def main():
         rows.append({"name": name, "route": "cuda", "source": src,
                      "replaces": repl, "launches": dec["launches"][name],
                      "launches_decode_annexb": one["launches"][name],
+                     "launches_classes": sum(
+                         r[p]["launches"][name]
+                         for r in report["classes"]["classes"].values()
+                         for p in ("decode_annexb", "lockstep")),
                      "max_abs_err": k["max_abs_err"], "ms": k["ms"],
                      "device_ms": k["device_ms"], "ms_k8": k["ms_k8"],
                      "device_ms_k8": k["device_ms_k8"],

@@ -7,6 +7,6 @@ time on the device.  Entry points run on `cuda` unless the caller passes
 `device="cpu"`.
 """
 
-from .api import Frame, find_start_code
+from .api import Decoder, Frame, decode_annexb, find_start_code
 
-__all__ = ["Frame", "find_start_code"]
+__all__ = ["Decoder", "Frame", "decode_annexb", "find_start_code"]

@@ -126,3 +126,24 @@ def test_cabac_tables_from_the_port_sources():
     rl, tm, tl = streams.parse_bitstream_tables()
     assert (len(rl), len(tm), len(tl)) == (256, 64, 64)
     assert rl[:4] == [128, 176, 208, 240] and tm[62:] == [62, 63]
+
+
+def test_package_exports_what_the_jax_package_exports():
+    """`import edge264_tpu_torch` gives every public name that
+    `import edge264_tpu` gives (its submodules aside), and stays light:
+    the package's import loads no torch."""
+    import types
+
+    import edge264_tpu
+    import edge264_tpu_torch
+    want = {n for n, v in vars(edge264_tpu).items()
+            if not n.startswith("_") and not isinstance(v, types.ModuleType)}
+    assert want >= {"Decoder", "Frame", "decode_annexb", "find_start_code"}
+    assert want <= set(edge264_tpu_torch.__all__)
+    for n in want:
+        assert callable(getattr(edge264_tpu_torch, n)), n
+    r = subprocess.run(
+        [sys.executable, "-c", "import sys, edge264_tpu_torch; "
+         "print('torch' in sys.modules)"],
+        cwd=REPO, capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0 and r.stdout.strip() == "False", r

@@ -14,9 +14,10 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-from chip_smoke import RouteLog, deblock_inputs, decoded_planes, \
-    intra_case, intra_inputs, mc_case, mc_inputs  # noqa: E402
-from edge264_tpu_torch import streams  # noqa: E402
+from chip_smoke import IntraModes, RouteLog, check_no_plain, \
+    check_views, deblock_inputs, decoded_planes, intra_case, intra_inputs, \
+    mc_case, mc_inputs, read_counts, reset_counts  # noqa: E402
+from edge264_tpu_torch import corpus, streams  # noqa: E402
 from edge264_tpu_torch.api import decode_annexb, find_start_code  # noqa
 from edge264_tpu_torch.convert import CONDITIONAL, planes_to_torch  # noqa
 from edge264_tpu_torch.native import EV_FRAME_DONE, NativeDecoder  # noqa
@@ -42,9 +43,10 @@ def dev():
     return torch.device("cuda")
 
 
-def _deblock_pair(dev, seed, K, mbW, mbH):
+def _deblock_pair(dev, seed, K, mbW, mbH, random_flags=False):
     """(plain result, kernel result) on one random deblock input."""
-    y, cb, cr, p, bs_v, bs_h = deblock_inputs(dev, seed, K, mbW, mbH)
+    y, cb, cr, p, bs_v, bs_h = deblock_inputs(dev, seed, K, mbW, mbH,
+                                              random_flags)
     want = D.deblock_scan(y, cb, cr, p, bs_v, bs_h, mbW, mbH)
     got = D.deblock_batch(y.clone(), cb.clone(), cr.clone(), p, bs_v, bs_h,
                           mbW, mbH)
@@ -66,9 +68,12 @@ def _assert_equal(want, got):
 
 
 def test_deblock_kernel_matches_plain(dev):
+    """Every edge on; then at 1080p, K=2, random edge bits (edges off
+    inside the frame) and random transform-8x8 bits."""
     n = D.deblock_batch.launches
     _assert_equal(*_deblock_pair(dev, 3, 2, 120, 6))
     assert D.deblock_batch.launches == n + 1
+    _assert_equal(*_deblock_pair(dev, 4, 2, 120, 68, random_flags=True))
 
 
 def _mc_cases(dev, seed, K, S, mbW, mbH, has_b, arm=None, mvmax=300):
@@ -197,6 +202,28 @@ def test_decode_annexb_on_card_matches_cpu(dev):
     assert (I.intra_batch.launches - n[0], D.deblock_batch.launches - n[1],
             M.mc_luma.launches - n[2], M.mc_chroma.launches - n[3]) == \
         (5, 5, 4, 4)
+
+
+@pytest.mark.parametrize("name", corpus.CPU_CLASSES + corpus.CARD_CLASSES)
+def test_corpus_class_on_card_matches_cpu(dev, name):
+    """Each class of the port's stream corpus through decode_annexb and
+    the lockstep driver (lanes=2) on the card: frames, ids, crop,
+    mb_errors and both MVC views byte-identical to the same path on the
+    CPU, with no plain version of a kernel (no level rounds, no mc_frame)
+    on the card."""
+    data = corpus.build(name)
+    for path, run in (("decode_annexb", decode_annexb),
+                      ("lockstep", lambda d, **kw: decode_gops_batched(
+                          d, lanes=2, **kw))):
+        want = list(run(data, device="cpu"))
+        reset_counts()
+        with RouteLog() as rl, IntraModes() as im:
+            got = list(run(data))
+        launches = read_counts()
+        check_no_plain(f"{name} {path}", launches, rl,
+                       im.non_skip if path == "lockstep" else None)
+        assert launches["intra"] and launches["deblock"], launches
+        check_views(f"{name} {path}", want, got)
 
 
 @pytest.mark.parametrize("mbW,mbH", [(5, 3), (11, 9)])
