@@ -28,12 +28,23 @@ Phases (any failure raises and exits non-zero):
               the intra and deblock kernels held exact on an odd geometry
               (K=3, 3x5 mbs) and at K=16 (1088 row workers), and the intra
               kernel at the front end's widest row (K=1, 1023x2 mbs).
+              Then the four stage kernels (residual.cu, bs.cu, mcpack.cu,
+              combine.cu) against their plain versions, exact, at 1080p
+              K=1 and K=8 on random inputs with their extremes (levels
+              +-2063, QP 0 and 51, the 8x8 transform on and off, every
+              weighted-prediction mode, orphan inter cells, scaling
+              matrices and slot maps as lane views), packing and combine
+              on every MC arm, at the clamps and with one list; each
+              timed with CUDA events and by its device time at K=1 and
+              K=8, beside its plain version's time and its least bytes.
   3. decode   the main path: a 1080p (120x68 mb) CABAC IPB stream of 2
               closed GOPs (IDR+P+B) through decode_gops_batched(lanes=2)
               on cuda with sink="frames" and sink="digest", and on the CPU
               (device="cpu", the plain versions) as the reference: every
               frame byte-identical, every digest == host_frame_digest;
-              every kernel used, the MC kernels on every inter step and
+              every kernel used (residual.cu, bs.cu and deblock.cu once a
+              step, mcpack.cu and combine.cu with the MC kernels), the MC
+              kernels on every inter step and
               intra.cu on every step with an intra mb, no plain version
               of a kernel (intra_rounds, mc_frame) on the card; each
               step's arena bytes (beside the int32 bytes planes_to_torch
@@ -133,6 +144,7 @@ from edge264_tpu_torch.ops import deblock as D
 from edge264_tpu_torch.ops import frame as F
 from edge264_tpu_torch.ops import intra as I
 from edge264_tpu_torch.ops import mc as M
+from edge264_tpu_torch.ops import residual as R
 from edge264_tpu_torch.parallel import batch as TB
 from edge264_tpu_torch.parallel import decode_batch_sharded, make_decode_mesh
 from edge264_tpu_torch.parallel.batch import decode_gops_batched
@@ -768,7 +780,208 @@ def phase_kernels(dev):
                 I.intra_scan_sheared(*frames, p, 1023, 2))
     del p, frames
     log("[kernels] intra exact at K=1, 1023x2 mbs")
+    out.update(stage_kernels(dev))
     return out
+
+
+# ---------------------------------------------------------------------------
+# phase 2, continued: the four stage kernels (residual.cu, mcpack.cu,
+# combine.cu, bs.cu) against their plain versions
+
+def _i32(a, dev):
+    return torch.as_tensor(np.ascontiguousarray(a), dtype=torch.int32,
+                           device=dev)
+
+
+def lane_views(a, dev, lead=3):
+    """a [K, ...] int32 on `dev` as lane views of longer rows, each
+    starting `lead` words in (12 bytes: off a 16-byte boundary), as the
+    meta block's scaling matrices and slot maps are views of a step's
+    arena rows."""
+    K = a.shape[0]
+    n = int(np.prod(a.shape[1:]))
+    rows = torch.zeros((K, lead + n + 1), dtype=torch.int32, device=dev)
+    rows[:, lead:lead + n] = _i32(a, dev).reshape(K, n)
+    return rows[:, lead:lead + n].reshape(a.shape)
+
+
+def residual_case(dev, seed, K, mbW=MBW, mbH=MBH):
+    """Random residual inputs: every mb kind (I4x4, I16x16, I8x8, PCM,
+    inter with and without the 8x8 transform, skip), levels up to +-40
+    with 5% at +-2063, QP random with 0 and 51 in a fifth of the mbs, and
+    random scaling matrices as lane views.  Returns (planes, sm4,
+    sm8)."""
+    rng = np.random.RandomState(seed)
+    H, W = mbH, mbW
+
+    def lv(shape):
+        v = rng.randint(-40, 41, shape)
+        return np.where(rng.rand(*shape) < 0.05,
+                        rng.choice([-2063, 2063], shape), v)
+
+    qp = rng.randint(0, 52, (K, H, W, 4))
+    qp = np.where(rng.rand(K, H, W, 1) < 0.2,
+                  rng.choice([0, 51], (K, H, W, 1)), qp)
+    p = {"mb_flags": rng.choice([1 | 32, 1 | 2 | 32, 1 | 8 | 32, 1 | 4 | 32,
+                                 64 | 32, 64 | 8 | 32, 64 | 16 | 32],
+                                (K, H, W)),
+         "qp": qp, "coef_y": lv((K, 4 * H, 4 * W, 16)),
+         "coef_y8": lv((K, 2 * H, 2 * W, 64)),
+         "coef_y_dc": lv((K, H, W, 16)), "coef_c_dc": lv((K, H, W, 2, 4)),
+         "coef_cb": lv((K, 2 * H, 2 * W, 16)),
+         "coef_cr": lv((K, 2 * H, 2 * W, 16))}
+    return ({k: _i32(v, dev) for k, v in p.items()},
+            lane_views(rng.randint(1, 256, (K, 6, 16)), dev),
+            lane_views(rng.randint(1, 256, (K, 6, 64)), dev))
+
+
+def bs_case(dev, seed, K, mbW=MBW, mbH=MBH):
+    """Random bS inputs: intra, inter and 8x8-transform mbs, sparse
+    nonzero counts, one, two or no reference slots a cell (0-3, so
+    neighbours often share them) and vectors within +-8 (so differences
+    fall on both sides of 4)."""
+    rng = np.random.RandomState(seed)
+    BH, BW = 4 * mbH, 4 * mbW
+    p = {"mb_flags": rng.choice([1 | 32, 64 | 32, 64 | 8 | 32, 1 | 8 | 32,
+                                 64 | 16 | 32], (K, mbH, mbW),
+                                p=[0.1, 0.5, 0.2, 0.1, 0.1]),
+         "nz_y": rng.randint(0, 4, (K, BH, BW)) * (rng.rand(K, BH, BW) < .2),
+         "refslot": np.where(rng.rand(K, BH, BW, 2) < 0.3, -1,
+                             rng.randint(0, 4, (K, BH, BW, 2))),
+         "mvs": rng.randint(-8, 9, (K, BH, BW, 2, 2))}
+    return {k: _i32(v, dev) for k, v in p.items()}
+
+
+def combine_case(dev, seed, K, has_b=True, **kw):
+    """mc_case's planes (slot maps as lane views) with every weighted
+    prediction mode (0 default, 1 explicit, 2 implicit) and logWD 0-7 at
+    random per mb, random wp8 weights and offsets, a fifth of the mbs
+    intra and the rest inter, so inter mbs whose cells use no list are
+    the orphans; and the MC kernels' per-list planes on them.  Returns
+    (planes, slot maps, flat)."""
+    p, smap, L, C = mc_case(dev, seed, K=K, **kw)
+    rng = np.random.RandomState(seed)
+    _, H, W = p["mb_flags"].shape
+    wp = np.zeros((K, H, W, 24), np.int64)
+    wp[..., 0] = rng.randint(0, 3, (K, H, W))
+    wp[..., 1:3] = rng.randint(0, 8, (K, H, W, 2))
+    p = dict(p, wp=_i32(wp, dev),
+             wp8=_i32(rng.randint(-128, 128, (K, 2 * H, 2 * W, 2, 3, 2)),
+                      dev),
+             mb_flags=_i32(np.where(rng.rand(K, H, W) < 0.2, 1 | 32,
+                                    64 | 32), dev))
+    smap = lane_views(smap.cpu().numpy(), dev)
+    flg, pkl, pkc = M.pack_mc_params(p, smap, has_b, W, H)
+    return p, smap, M.run_mc_kernels(flg, pkl, pkc, L, C, has_b, W, H)
+
+
+def stage_calls(dev, seed, K, mbW=MBW, mbH=MBH, **kw):
+    """{name: (kernel call, plain call, least bytes, integer operations)}
+    of the four stage kernels on one random input of K lanes, 1080p by
+    default (the MC ones on mc_case's, arms and clamps per kw).  Least
+    bytes: what the call's data needs read once and written once
+    (residual: per mb its
+    flags, qp, the 256 luma coefficients of the transform its flag
+    selects, its Intra 16x16 DC where it has one, 8 chroma DC and 128
+    chroma coefficients, and 384 samples out; bS: per 4x4 block its nz,
+    slots and vectors in, 2 strengths out, and the mb flags; packing:
+    each cell's slots and vectors and the slot maps in, the flags and 32
+    words of every padded block out; combine: each cell's slots, the
+    mb's 3 weight fields and the 8x8 block's 12 weights in, both lists'
+    samples in and the samples and masks out)."""
+    out = {}
+    p, sm4, sm8 = residual_case(dev, seed, K, mbW, mbH)
+    fl = p["mb_flags"].cpu().numpy()
+    i16 = ((fl & 2) > 0) & ~((fl & 8) > 0)
+    n_mb = fl.size
+    nbytes = 4 * (n_mb * (1 + 4 + 256 + 8 + 128 + 384) + 16 * int(i16.sum())
+                  + K * (96 + 384))
+    out["residual"] = (lambda: R.residual_cuda(p, sm4, sm8, True),
+                       lambda: R.residual_frame_plain(p, sm4, sm8, True),
+                       nbytes, 16 * 384 * n_mb)
+    out["residual_no_t8"] = (
+        lambda: R.residual_cuda(p, sm4, sm8, False),
+        lambda: R.residual_frame_plain(p, sm4, sm8, False), None, None)
+    pb = bs_case(dev, seed + 1, K, mbW, mbH)
+    cells = pb["nz_y"].numel()
+    out["bs"] = (lambda: D.deblock_bs_cuda(pb),
+                 lambda: D.deblock_bs_plain(pb),
+                 4 * (cells * (1 + 2 + 4 + 2) + pb["mb_flags"].numel()),
+                 60 * cells)
+    pm, smap, _L, _C = mc_case(dev, seed + 2, K=K, mbW=mbW, mbH=mbH, **kw)
+    smap = lane_views(smap.cpu().numpy(), dev)
+    BR, BC = 2 * mbH, M._pack_dims(mbW)[1]
+    cells = pm["refslot"].shape[0] * pm["refslot"][0, ..., 0].numel()
+    out["mcpack"] = (
+        lambda: M.pack_mc_params_cuda(pm, smap, True, mbW, mbH),
+        lambda: M.pack_mc_params_plain(pm, smap, True, mbW, mbH),
+        4 * (cells * 6 + K * 32 + K * BR * BC * 33), 150 * K * BR * BC)
+    del _L, _C
+    pc, smc, flat = combine_case(dev, seed + 3, K, mbW=mbW, mbH=mbH, **kw)
+    cells = pc["refslot"].shape[0] * pc["refslot"][0, ..., 0].numel()
+    out["combine"] = (
+        lambda: M.combine_mc_cuda(pc, flat, True),
+        lambda: M.combine_mc_plain(pc, smc, flat, True),
+        cells * (8 + 2 * 4 * 24 + 4 * 24 + 24) + 4 * (
+            3 * pc["mb_flags"].numel() + 12 * pc["wp8"][..., 0, 0, 0]
+            .numel()), 20 * 24 * cells)
+    return out
+
+
+def stage_kernels(dev):
+    """The four stage kernels against their plain versions, exact, at
+    1080p: K=1 (the single-frame path) and K=8 (the lockstep cell) on
+    random inputs with their extremes (levels +-2063, QP 0 and 51, every
+    weighted-prediction mode, orphan inter cells, the 8x8 transform on
+    and off), packing on every MC arm and at the clamps, with one list
+    and two; each timed with CUDA events around the call (ms) and by its
+    device time (device_ms) at K=1 and K=8, beside the plain version's
+    time at K=1, its least bytes and integer operations."""
+    res = {}
+    for K_ in (1, 8):
+        calls = stage_calls(dev, 30 + K_, K_)
+        for name, (kern, plain, nbytes, ops) in calls.items():
+            err = check_equal(f"{name} K={K_}", kern(), plain())
+            if nbytes is None:
+                continue
+            r = res.setdefault(name, {"max_abs_err": err, "lanes": 1})
+            r["max_abs_err"] = max(r["max_abs_err"], err)
+            tag = "" if K_ == 1 else "_k8"
+            r["ms" + tag] = cuda_ms(kern, 20)
+            r["device_ms" + tag] = device_ms(name, kern, 20)
+            r["bytes" + tag], r["ops" + tag] = nbytes, ops
+            if K_ == 1:
+                r["plain_ms"] = cuda_ms(plain, 3)
+        del calls
+    for label, kw in (("uniform", dict(arm="uniform")),
+                      ("pair", dict(arm="pair")), ("quad", dict(arm="quad")),
+                      ("unused", dict(arm="unused")),
+                      ("clamp", dict(mvmax=2000))):
+        for has_b in (True, False):
+            pm, smap, L, C = mc_case(dev, 40, K=2, **kw)
+            got = M.pack_mc_params_cuda(pm, smap, has_b, MBW, MBH)
+            check_equal(f"mcpack {label} has_b={has_b}", got,
+                        M.pack_mc_params_plain(pm, smap, has_b, MBW, MBH))
+            flat = M.run_mc_kernels(*got, L, C, has_b, MBW, MBH)
+            check_equal(f"combine {label} has_b={has_b}",
+                        M.combine_mc_cuda(pm, flat, has_b),
+                        M.combine_mc_plain(pm, smap, flat, has_b))
+            pc, smc, flat = combine_case(dev, 41, 2, has_b, **kw)
+            check_equal(f"combine weighted {label} has_b={has_b}",
+                        M.combine_mc_cuda(pc, flat, has_b),
+                        M.combine_mc_plain(pc, smc, flat, has_b))
+            del pm, smap, L, C, got, flat, pc, smc
+    for name, r in res.items():
+        log(f"[kernels] {name}: exact at K=1 and K=8; {r['ms']:.3f} ms "
+            f"(device {r['device_ms']:.4f}) vs plain {r['plain_ms']:.3f} ms "
+            f"at K=1; K=8 {r['ms_k8']:.3f} ms (device "
+            f"{r['device_ms_k8']:.4f}); bound "
+            f"{r['bytes'] / HBM_BYTES_PER_S * 1e3:.4f} ms (K=1)")
+    log("[kernels] mcpack and combine exact on every MC arm, at the clamps "
+        "(mvs to +-2000), with one list and two; combine on every weighted "
+        "prediction mode with orphan inter cells; residual with the 8x8 "
+        "transform on and off")
+    return res
 
 
 # ---------------------------------------------------------------------------
@@ -877,8 +1090,11 @@ class StageTimer:
 
 COUNTED = {"intra": I.intra_batch, "intra_rounds": I.intra_rounds,
            "deblock": D.deblock_batch, "mc_luma": M.mc_luma,
-           "mc_chroma": M.mc_chroma}
-KERNELS = ("intra", "deblock", "mc_luma", "mc_chroma")
+           "mc_chroma": M.mc_chroma, "residual": R.residual_cuda,
+           "mcpack": M.pack_mc_params_cuda, "combine": M.combine_mc_cuda,
+           "bs": D.deblock_bs_cuda}
+KERNELS = ("intra", "deblock", "mc_luma", "mc_chroma", "residual", "mcpack",
+           "combine", "bs")
 
 
 def reset_counts():
@@ -959,11 +1175,17 @@ class IntraModes:
 def check_no_plain(name, launches, routes, intra_steps=None):
     """The card ran no plain version of a kernel (routes: a RouteLog): no
     level rounds, no mc_frame, both MC kernels launched for every inter
-    prediction and, where intra_steps is given, intra.cu once for each
-    step or frame with intra work."""
+    prediction and mcpack.cu and combine.cu with them, residual.cu and
+    bs.cu once for every deblock.cu launch (one each a step or frame)
+    and, where intra_steps is given, intra.cu once for each step or frame
+    with intra work."""
     n = len(routes.routes)
     if launches["intra_rounds"] or "frame" in routes.routes \
             or routes.launches != {"mc_luma": n, "mc_chroma": n} \
+            or launches["mcpack"] != launches["mc_luma"] \
+            or launches["combine"] != launches["mc_luma"] \
+            or launches["residual"] != launches["deblock"] \
+            or launches["bs"] != launches["deblock"] \
             or intra_steps not in (None, launches["intra"]):
         raise AssertionError(
             f"{name} on cuda: launches {launches}, MC routes "
@@ -1134,7 +1356,9 @@ def busy_us(events):
 
 # each kernel's device function, as the trace names it
 SYMBOLS = {"intra": "intra_rows", "deblock": "deblock_rows",
-           "mc_luma": "mc_luma", "mc_chroma": "mc_chroma"}
+           "mc_luma": "mc_luma", "mc_chroma": "mc_chroma",
+           "residual": "residual_jobs", "mcpack": "pack_blocks",
+           "combine": "combine_cells", "bs": "bs_blocks"}
 
 
 def htod_copies(prof, name):
@@ -1439,8 +1663,10 @@ def phase_frame(data, dev):
         res[tag + "_routes"] = rl.routes
     launches = res["cuda_launches"]
     if res["cuda_routes"] != ["kernels"] or launches["intra_rounds"] or any(
-            launches[k] != n for k, n in (("intra", 2), ("deblock", 2),
-                                          ("mc_luma", 1), ("mc_chroma", 1))):
+            launches[k] != n for k, n in (
+                ("intra", 2), ("deblock", 2), ("residual", 2), ("bs", 2),
+                ("mc_luma", 1), ("mc_chroma", 1), ("mcpack", 1),
+                ("combine", 1))):
         raise AssertionError(f"decode_frame on cuda: routes "
                              f"{res['cuda_routes']}, launches {launches}")
     for i, (a, b) in enumerate(zip(out["cpu"], out["cuda"])):
@@ -2007,7 +2233,16 @@ def main():
             ("mc_luma", "edge264_tpu_torch/kernels/csrc/mc.cu",
              "edge264_tpu/ops/pallas_mc.py:253"),
             ("mc_chroma", "edge264_tpu_torch/kernels/csrc/mc.cu",
-             "edge264_tpu/ops/pallas_mc.py:339")):
+             "edge264_tpu/ops/pallas_mc.py:339"),
+            # the plain stages (XLA in the JAX package, no Pallas kernel)
+            ("residual", "edge264_tpu_torch/kernels/csrc/residual.cu",
+             "edge264_tpu/ops/jaxdec.py:203"),
+            ("mcpack", "edge264_tpu_torch/kernels/csrc/mcpack.cu",
+             "edge264_tpu/ops/pallas_mc.py:118"),
+            ("combine", "edge264_tpu_torch/kernels/csrc/combine.cu",
+             "edge264_tpu/ops/pallas_mc.py:523"),
+            ("bs", "edge264_tpu_torch/kernels/csrc/bs.cu",
+             "edge264_tpu/ops/jaxdec.py:1271")):
         k = report["kernels"][name]
         t_bytes = k["bytes"] / HBM_BYTES_PER_S * 1e3
         t_ops = k["ops"] / SCALAR_OPS_PER_S * 1e3
@@ -2022,6 +2257,7 @@ def main():
                      "device_ms": k["device_ms"], "ms_k8": k["ms_k8"],
                      "device_ms_k8": k["device_ms_k8"],
                      "plain_ms": k["plain_ms"],
+                     "ms_lanes": k.get("lanes", K),
                      "bound_ms": max(t_bytes, t_ops),
                      "bound_by": "bytes" if t_bytes >= t_ops
                      else "operations",

@@ -32,6 +32,10 @@ ENTRIES = {
     "intra": {"e264t_intra": [_P] * 15 + [_I] * 5 + [_P]},
     "mc": {"e264t_mc_luma": [_P] * 5 + [_I] * 7 + [_P],
            "e264t_mc_chroma": [_P] * 5 + [_I] * 7 + [_P]},
+    "residual": {"e264t_residual": [_P] * 13 + [_I] * 6 + [_P]},
+    "mcpack": {"e264t_mcpack": [_P] * 6 + [_I] * 10 + [_P]},
+    "combine": {"e264t_combine": [_P] * 13 + [_I] * 3 + [_P]},
+    "bs": {"e264t_bs": [_P] * 6 + [_I] * 3 + [_P]},
 }
 
 # one build and one load of each library per process, whichever thread
@@ -102,10 +106,12 @@ def _build_all(names, force):
 
 
 def lib(name: str) -> C.CDLL:
-    """The loaded kernel library `name` (built on first use)."""
+    """The loaded kernel library `name`.  Loading one builds every stale
+    library of ENTRIES first, all nvcc processes at once, so a decode's
+    first use of each kernel does not wait for its own build in turn."""
     with _lock:
         if name not in _libs:
-            build_all((name,))
+            build_all()
             dll = C.CDLL(_lib_path(name))
             for fn, argtypes in ENTRIES[name].items():
                 f = getattr(dll, fn)
@@ -118,10 +124,21 @@ def lib(name: str) -> C.CDLL:
 def check_args(args, dtype, device):
     """Raise unless every (tensor, shape) pair is a contiguous `dtype`
     tensor of that shape on `device`, a CUDA device, starting on a 16-byte
-    boundary (the kernels' cp.async and int4 loads need it; a view into a
-    larger buffer may not)."""
+    boundary (check_tensors)."""
+    require_cuda(device)
+    check_tensors(args, dtype, device)
+
+
+def require_cuda(device):
     if device.type != "cuda":
         raise ValueError(f"kernels run on CUDA tensors, not {device}")
+
+
+def check_tensors(args, dtype, device):
+    """check_args on any device: every (tensor, shape) pair a contiguous
+    `dtype` tensor of that shape on `device`, starting on a 16-byte
+    boundary (the kernels' cp.async and int4 loads need it; a view into a
+    larger buffer may not).  Raises ValueError."""
     for i, (t, shape) in enumerate(args):
         if t.device != device or t.dtype != dtype:
             raise ValueError(f"arg {i}: {t.dtype} on {t.device}, want "
@@ -136,9 +153,39 @@ def check_args(args, dtype, device):
                              "16-byte aligned")
 
 
+def lane_stride(t, shape, dtype, device) -> int:
+    """The lane stride in elements of `t`, a `dtype` tensor of `shape`
+    ([K, ...]) on `device` whose lanes are each contiguous and start on
+    an element boundary, as the meta block's views of a step's arena rows
+    are (scaling matrices, slot maps: the kernels read them an element at
+    a time).  Raises ValueError otherwise."""
+    if t.device != device or t.dtype != dtype:
+        raise ValueError(f"{t.dtype} on {t.device}, want {dtype} on "
+                         f"{device}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"shape {tuple(t.shape)}, want {tuple(shape)}")
+    inner = t[0] if t.shape[0] else t
+    if not inner.is_contiguous() or t.data_ptr() % t.element_size():
+        raise ValueError("a lane is not contiguous and element-aligned")
+    return t.stride(0)
+
+
 def raise_on(rc: int, what: str):
     if rc != 0:
         raise RuntimeError(f"{what} kernel launch failed: cudaError {rc}")
+
+
+def launch(name: str, entry: str, device, tensors, *ints):
+    """Run `entry` of library `name` on `device`'s current stream with the
+    tensors' device pointers (None: a null pointer), then the ints; raise
+    when the launch fails."""
+    import torch
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        rc = getattr(lib(name), entry)(
+            *[C.c_void_p(None if t is None else t.data_ptr())
+              for t in tensors], *ints, C.c_void_p(stream))
+    raise_on(rc, entry)
 
 
 if __name__ == "__main__":

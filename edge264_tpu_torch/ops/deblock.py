@@ -2,12 +2,13 @@
 plain wavefront scan, the wrapper that launches the CUDA kernel, and the
 post-deblock concealment blend.
 
-Ports of `jaxdec.deblock_bs`, `jaxdec.deblock_scan` (with
-`_filter_luma_lines` / `_filter_chroma_lines`), of
-`pallas_deblock.deblock_pallas_batch`'s role (`deblock_batch` runs
-`kernels/csrc/deblock.cu` on CUDA tensors and the plain `deblock_scan`
-on CPU tensors) and of `jaxdec.blend_recovered` (plain PyTorch on every
-device, as it is XLA in the JAX package).
+Ports of `jaxdec.deblock_bs` (`deblock_bs` runs the plain
+`deblock_bs_plain` on CPU tensors and `kernels/csrc/bs.cu` on CUDA
+tensors), `jaxdec.deblock_scan` (with `_filter_luma_lines` /
+`_filter_chroma_lines`), of `pallas_deblock.deblock_pallas_batch`'s role
+(`deblock_batch` runs `kernels/csrc/deblock.cu` on CUDA tensors and the
+plain `deblock_scan` on CPU tensors) and of `jaxdec.blend_recovered`
+(plain PyTorch on every device, as it is XLA in the JAX package).
 """
 
 from __future__ import annotations
@@ -27,7 +28,50 @@ I32 = torch.int32
 
 def deblock_bs(p):
     """Boundary strengths of every 4x4 block's left edge (bs_v) and top
-    edge (bs_h), [K, 4mbH, 4mbW] int32 each (§8.7.2.1)."""
+    edge (bs_h), [K, 4mbH, 4mbW] int32 each (§8.7.2.1):
+    deblock_bs_plain on CPU tensors, deblock_bs_cuda (bs.cu) on CUDA
+    tensors."""
+    if p["mb_flags"].device.type == "cpu":
+        return deblock_bs_plain(p)
+    return deblock_bs_cuda(p)
+
+
+def bs_args(p):
+    """bs.cu's planes after the checks (flags, nz_y, refslot, mvs), in the
+    C entry's order.  Raises ValueError on a wrong shape, type, device,
+    layout or alignment."""
+    from ..kernels import build
+    flags = p["mb_flags"]
+    K, H, W = flags.shape
+    args = [(flags, (K, H, W)), (p["nz_y"], (K, 4 * H, 4 * W)),
+            (p["refslot"], (K, 4 * H, 4 * W, 2)),
+            (p["mvs"], (K, 4 * H, 4 * W, 2, 2))]
+    build.check_tensors(args, I32, flags.device)
+    return [t for t, _ in args]
+
+
+def deblock_bs_cuda(p):
+    """deblock_bs on CUDA tensors: one launch of `kernels/csrc/bs.cu`,
+    adding one to `deblock_bs_cuda.launches`."""
+    from ..kernels import build
+    flags = p["mb_flags"]
+    dev = flags.device
+    build.require_cuda(dev)
+    planes = bs_args(p)
+    K, H, W = flags.shape
+    bs_v = torch.empty((K, 4 * H, 4 * W), dtype=I32, device=dev)
+    bs_h = torch.empty_like(bs_v)
+    build.launch("bs", "e264t_bs", dev, planes + [bs_v, bs_h], K, W, H)
+    deblock_bs_cuda.launches += 1
+    return bs_v, bs_h
+
+
+deblock_bs_cuda.launches = 0
+
+
+def deblock_bs_plain(p):
+    """deblock_bs in tensor ops (the neighbours by torch.roll, so column
+    and row 0 compare with the last)."""
     flags = p["mb_flags"]
     intra_blk = _rep((flags & MBF_INTRA) > 0, 4)
     nz = p["nz_y"] > 0

@@ -7,10 +7,12 @@ of `pallas_mc.pack_mc_params`, `run_mc_kernels` and `combine_mc`.
 
     pack_mc_params -> run_mc_kernels (mc_luma + mc_chroma) -> combine_mc
 
-`mc_luma` / `mc_chroma` launch `kernels/csrc/mc.cu` on CUDA tensors and
-run their plain versions (`mc_luma_plain` / `mc_chroma_plain`, the same
-per-sample arms in tensor ops) on CPU tensors.  Each load (per block,
-list and quadrant) is a pair of int32 words:
+Each runs a hand-written kernel on CUDA tensors and its plain version
+(the same arithmetic in tensor ops) on CPU tensors: `pack_mc_params`
+`kernels/csrc/mcpack.cu` (plain: `pack_mc_params_plain`), `mc_luma` /
+`mc_chroma` `kernels/csrc/mc.cu` (`mc_luma_plain` / `mc_chroma_plain`),
+`combine_mc` `kernels/csrc/combine.cu` (`combine_mc_plain`).  Each load
+(per block, list and quadrant) is a pair of int32 words:
 
     position word  y << 15 | x            x, y below 2^15
     ring word      ring index << 8 | sel  sel: the luma pair's half-pel
@@ -239,6 +241,22 @@ def _luma_words(sidx, y, x, s, used):
 
 
 def pack_mc_params(p, slot_maps, has_b, mbW, mbH):
+    """The MC kernels' parameters (the contract of pack_mc_params_plain):
+    pack_mc_params_plain on CPU tensors, pack_mc_params_cuda (mcpack.cu)
+    on CUDA tensors."""
+    if p["refslot"].device.type == "cpu":
+        return pack_mc_params_plain(p, slot_maps, has_b, mbW, mbH)
+    return pack_mc_params_cuda(p, slot_maps, has_b, mbW, mbH)
+
+
+def _pack_dims(mbW):
+    """(W_b, BC): the luma row padded to a multiple of 128 samples (at
+    least 128) and its 8x8 block columns."""
+    W_b = max(-(-16 * mbW // 128) * 128, 128)
+    return W_b, W_b // 8
+
+
+def pack_mc_params_plain(p, slot_maps, has_b, mbW, mbH):
     """Build (flags [K,BR,1,BC], pk_luma [K,BR,1,BC*16],
     pk_chroma [K,BR//2,1,2*BC*16]), all int32: the kernels' input
     contract, pallas_mc.pack_mc_params' with the port's load words (the
@@ -250,9 +268,8 @@ def pack_mc_params(p, slot_maps, has_b, mbW, mbH):
     their joint 8x8 (4x4 chroma) load words in the q0 slots, and the even
     block of a 16x8 pair its joint 16x8 luma words."""
     ph, pw_b, phc, pwc_pad = mc_band_dims(mbW, mbH)
-    W_b = max(-(-16 * mbW // 128) * 128, 128)
     BR, bc = 2 * mbH, 2 * mbW
-    BC = W_b // 8
+    BC = _pack_dims(mbW)[1]
     K = p["refslot"].shape[0]
     dev = p["refslot"].device
     BH, BW = 4 * mbH, 4 * mbW
@@ -336,6 +353,42 @@ def pack_mc_params(p, slot_maps, has_b, mbW, mbH):
     flg = _pad_blocks(flags[..., None], BR, BC, fill=0)[..., 0]
     return (flg.reshape(K, BR, 1, BC), pkl.reshape(K, BR, 1, BC * 16),
             pkc.reshape(K, BR // 2, 1, 2 * BC * 16))
+
+
+def pack_args(p, slot_maps, mbW, mbH):
+    """mcpack.cu's inputs after the checks: (refslot, mvs, slot_maps,
+    slot_maps' lane stride).  Raises ValueError on a wrong shape, type,
+    device, layout or alignment."""
+    from ..kernels import build
+    rs, mvs = p["refslot"], p["mvs"]
+    K, dev = rs.shape[0], rs.device
+    BH, BW = 4 * mbH, 4 * mbW
+    build.check_tensors([(rs, (K, BH, BW, 2)), (mvs, (K, BH, BW, 2, 2))],
+                        I32, dev)
+    return rs, mvs, slot_maps, build.lane_stride(slot_maps, (K, 32), I32,
+                                                 dev)
+
+
+def pack_mc_params_cuda(p, slot_maps, has_b, mbW, mbH):
+    """pack_mc_params on CUDA tensors: one launch of
+    `kernels/csrc/mcpack.cu`, adding one to
+    `pack_mc_params_cuda.launches`."""
+    from ..kernels import build
+    dev = p["refslot"].device
+    build.require_cuda(dev)
+    rs, mvs, smap, stride = pack_args(p, slot_maps, mbW, mbH)
+    K, BR, BC = rs.shape[0], 2 * mbH, _pack_dims(mbW)[1]
+    flg = torch.empty((K, BR, 1, BC), dtype=I32, device=dev)
+    pkl = torch.empty((K, BR, 1, BC * 16), dtype=I32, device=dev)
+    pkc = torch.empty((K, BR // 2, 1, 2 * BC * 16), dtype=I32, device=dev)
+    build.launch("mcpack", "e264t_mcpack", dev,
+                 (rs, mvs, smap, flg, pkl, pkc), K, mbW, mbH, BC,
+                 *mc_band_dims(mbW, mbH), 2 if has_b else 1, stride)
+    pack_mc_params_cuda.launches += 1
+    return flg, pkl, pkc
+
+
+pack_mc_params_cuda.launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -502,7 +555,58 @@ def run_mc_kernels(flg, pkl, pkc, refL, refC, has_b, mbW, mbH):
 
 def combine_mc(p, slot_maps, flat, has_b):
     """Weighted-prediction combine of the kernels' per-list planes
-    (pallas_mc.combine_mc)."""
+    (pallas_mc.combine_mc): combine_mc_plain on CPU tensors,
+    combine_mc_cuda (combine.cu) on CUDA tensors."""
+    if p["refslot"].device.type == "cpu":
+        return combine_mc_plain(p, slot_maps, flat, has_b)
+    return combine_mc_cuda(p, flat, has_b)
+
+
+def combine_args(p, flat, has_b):
+    """combine.cu's inputs after the checks, in the C entry's order:
+    (mb_flags, refslot, wp, wp8, y0, c0, y1, c1), list 1's None without
+    it.  Raises ValueError on a wrong shape, type, device, layout,
+    alignment or list count."""
+    from ..kernels import build
+    flags = p["mb_flags"]
+    K, H, W = flags.shape
+    if len(flat) != (4 if has_b else 2):
+        raise ValueError(f"{len(flat)} per-list planes for has_b={has_b}")
+    args = [(flags, (K, H, W)), (p["refslot"], (K, 4 * H, 4 * W, 2)),
+            (p["wp"], (K, H, W, 24)), (p["wp8"], (K, 2 * H, 2 * W, 2, 3, 2))]
+    for l in range(len(flat) // 2):
+        args += [(flat[2 * l], (K, 16 * H, 16 * W)),
+                 (flat[2 * l + 1], (K, 8 * H, 8 * W, 2))]
+    build.check_tensors(args, I32, flags.device)
+    return [t for t, _ in args] + ([] if has_b else [None, None])
+
+
+def combine_mc_cuda(p, flat, has_b):
+    """combine_mc on CUDA tensors: one launch of `kernels/csrc/combine.cu`,
+    adding one to `combine_mc_cuda.launches`.  Returns (pred_y, pred_cb,
+    pred_cr, mask_y, mask_c) as combine_mc_plain does."""
+    from ..kernels import build
+    flags = p["mb_flags"]
+    dev = flags.device
+    build.require_cuda(dev)
+    ins = combine_args(p, flat, has_b)
+    K, H, W = flags.shape
+    pred_y = torch.empty((K, 16 * H, 16 * W), dtype=I32, device=dev)
+    pred_cb = torch.empty((K, 8 * H, 8 * W), dtype=I32, device=dev)
+    pred_cr = torch.empty_like(pred_cb)
+    mask_y = torch.empty(pred_y.shape, dtype=torch.bool, device=dev)
+    mask_c = torch.empty(pred_cb.shape, dtype=torch.bool, device=dev)
+    outs = [pred_y, pred_cb, pred_cr, mask_y, mask_c]
+    build.launch("combine", "e264t_combine", dev, ins + outs, K, W, H)
+    combine_mc_cuda.launches += 1
+    return tuple(outs)
+
+
+combine_mc_cuda.launches = 0
+
+
+def combine_mc_plain(p, slot_maps, flat, has_b):
+    """combine_mc in tensor ops."""
     preds = []
     for l in (0, 1) if has_b else (0,):
         used = _mc_meta(p, slot_maps, l)[0]

@@ -4,7 +4,9 @@ DC Hadamards (§8.5), batched over K frames.
 Port of `jaxdec.residual_frame` and its helpers.  Every value is int32
 and every step is exact integer arithmetic, as in the JAX version; the
 lane axis K that JAX added with `vmap` is the leading dimension here.
-Coefficients stay in plane-major layout ([K, 16, BH, BW]).
+`residual_frame` runs the plain version (`residual_frame_plain`,
+coefficients in plane-major layout [K, 16, BH, BW]) on CPU tensors and
+`kernels/csrc/residual.cu` (`residual_cuda`) on CUDA tensors.
 """
 
 from __future__ import annotations
@@ -104,7 +106,16 @@ def _planes_to_pixels(pl, n):
 
 
 def residual_frame(p, sm4, sm8, has_t8=True):
-    """All luma + chroma residuals for K frames.
+    """All luma + chroma residuals for K frames (the contract of
+    residual_frame_plain): residual_frame_plain on CPU tensors,
+    residual_cuda (residual.cu) on CUDA tensors."""
+    if p["mb_flags"].device.type == "cpu":
+        return residual_frame_plain(p, sm4, sm8, has_t8)
+    return residual_cuda(p, sm4, sm8, has_t8)
+
+
+def residual_frame_plain(p, sm4, sm8, has_t8=True):
+    """All luma + chroma residuals for K frames, in tensor ops.
 
     p: stacked int32 plane dict ([K, ...] each); sm4 [K,6,16] / sm8
     [K,6,64] weight-scale matrices.  Returns res_y [K,16H,16W] and
@@ -172,3 +183,47 @@ def residual_frame(p, sm4, sm8, has_t8=True):
         dc4[0] = dcc.permute(0, 1, 3, 2, 4).reshape(K, 2 * H, 2 * W)
         res_c.append(_planes_to_pixels(_idct4_planes(dc4), 4))
     return res_y, res_c[0], res_c[1]
+
+
+def residual_args(p, sm4, sm8, has_t8):
+    """residual.cu's arguments after the checks: ([planes], sm4's and
+    sm8's lane strides), the planes in the C entry's order, coef_y8 None
+    without the 8x8 transform.  Raises ValueError on a wrong shape, type,
+    device, layout or alignment."""
+    from ..kernels import build
+    K, H, W = p["mb_flags"].shape
+    dev = p["mb_flags"].device
+    shapes = {"mb_flags": (K, H, W), "qp": (K, H, W, 4),
+              "coef_y": (K, 4 * H, 4 * W, 16),
+              "coef_y8": (K, 2 * H, 2 * W, 64),
+              "coef_y_dc": (K, H, W, 16), "coef_c_dc": (K, H, W, 2, 4),
+              "coef_cb": (K, 2 * H, 2 * W, 16),
+              "coef_cr": (K, 2 * H, 2 * W, 16)}
+    planes = [None if k == "coef_y8" and not has_t8 else p[k]
+              for k in shapes]
+    build.check_tensors([(t, shapes[k]) for k, t in zip(shapes, planes)
+                         if t is not None], I32, dev)
+    s4 = build.lane_stride(sm4, (K, 6, 16), I32, dev)
+    s8 = build.lane_stride(sm8, (K, 6, 64), I32, dev) if has_t8 else 0
+    return planes, s4, s8
+
+
+def residual_cuda(p, sm4, sm8, has_t8=True):
+    """residual_frame on CUDA tensors: one launch of
+    `kernels/csrc/residual.cu`, adding one to `residual_cuda.launches`."""
+    from ..kernels import build
+    K, H, W = p["mb_flags"].shape
+    dev = p["mb_flags"].device
+    build.require_cuda(dev)
+    planes, s4, s8 = residual_args(p, sm4, sm8, has_t8)
+    res_y = torch.empty((K, 16 * H, 16 * W), dtype=I32, device=dev)
+    res_cb = torch.empty((K, 8 * H, 8 * W), dtype=I32, device=dev)
+    res_cr = torch.empty_like(res_cb)
+    build.launch("residual", "e264t_residual", dev,
+                 planes + [sm4, sm8 if has_t8 else None, res_y, res_cb,
+                           res_cr], K, W, H, s4, s8, int(bool(has_t8)))
+    residual_cuda.launches += 1
+    return res_y, res_cb, res_cr
+
+
+residual_cuda.launches = 0

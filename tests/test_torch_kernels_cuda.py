@@ -19,8 +19,9 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from chip_smoke import IntraModes, RouteLog, check_no_plain, \
-    check_views, deblock_inputs, decoded_planes, intra_case, intra_inputs, \
-    mc_case, mc_inputs, read_counts, reset_counts  # noqa: E402
+    check_views, combine_case, deblock_inputs, decoded_planes, intra_case, \
+    intra_inputs, lane_views, mc_case, mc_inputs, read_counts, \
+    reset_counts, stage_calls  # noqa: E402
 from edge264_tpu_torch import corpus, streams  # noqa: E402
 from edge264_tpu_torch.api import decode_annexb, find_start_code  # noqa
 from edge264_tpu_torch.convert import CONDITIONAL, planes_to_torch  # noqa
@@ -30,6 +31,7 @@ from edge264_tpu_torch.ops import deblock as D  # noqa: E402
 from edge264_tpu_torch.ops import frame as F  # noqa: E402
 from edge264_tpu_torch.ops import intra as I  # noqa: E402
 from edge264_tpu_torch.ops import mc as M  # noqa: E402
+from edge264_tpu_torch.ops import residual as R  # noqa: E402
 from edge264_tpu_torch.ops.batched import host_frame_digest  # noqa: E402
 from edge264_tpu_torch.parallel import make_decode_mesh  # noqa: E402
 from edge264_tpu_torch.parallel.batch import \
@@ -206,6 +208,88 @@ def test_decode_annexb_on_card_matches_cpu(dev):
     assert (I.intra_batch.launches - n[0], D.deblock_batch.launches - n[1],
             M.mc_luma.launches - n[2], M.mc_chroma.launches - n[3]) == \
         (5, 5, 4, 4)
+
+
+# the four stage kernels, their wrappers and their plain versions
+STAGES = {"residual": (R, "residual_frame_plain", R.residual_cuda),
+          "bs": (D, "deblock_bs_plain", D.deblock_bs_cuda),
+          "mcpack": (M, "pack_mc_params_plain", M.pack_mc_params_cuda),
+          "combine": (M, "combine_mc_plain", M.combine_mc_cuda)}
+
+
+@pytest.mark.parametrize("K", [1, 8])
+def test_stage_kernels_match_plain(dev, K):
+    """residual.cu, bs.cu, mcpack.cu and combine.cu against their plain
+    versions at 1080p on random inputs with their extremes: levels at
+    +-2063, QP 0 and 51, every mb kind with the 8x8 transform on and off,
+    scaling matrices and slot maps as lane views of longer rows, every
+    weighted-prediction mode and orphan inter cells; one launch a call."""
+    for name, (kern, plain, _bytes, _ops) in stage_calls(dev, 60 + K,
+                                                         K).items():
+        wrapper = STAGES[name.split("_")[0]][2]
+        n = wrapper.launches
+        got = kern()
+        assert wrapper.launches == n + 1, name
+        _assert_equal(plain(), got)
+
+
+@pytest.mark.parametrize("has_b", [True, False])
+@pytest.mark.parametrize("arm", [None, "uniform", "pair", "quad", "unused"])
+def test_stage_kernels_on_mc_arms(dev, arm, has_b):
+    """mcpack.cu and combine.cu on every MC arm (16x8 pairs, uniform 8x8,
+    per-4x4 quadrants, no list used), at the clamps (mvs to +-2000) and
+    with one list or two; combine also with random weights."""
+    for kw in (dict(arm=arm), dict(arm=arm, mvmax=2000)):
+        p, smap, L, C = mc_case(dev, 70, K=2, mbW=40, mbH=6, **kw)
+        smap = lane_views(smap.cpu().numpy(), dev)
+        got = M.pack_mc_params_cuda(p, smap, has_b, 40, 6)
+        _assert_equal(M.pack_mc_params_plain(p, smap, has_b, 40, 6), got)
+        flat = M.run_mc_kernels(*got, L, C, has_b, 40, 6)
+        _assert_equal(M.combine_mc_plain(p, smap, flat, has_b),
+                      M.combine_mc_cuda(p, flat, has_b))
+        p, smap, flat = combine_case(dev, 71, 2, has_b, mbW=40, mbH=6, **kw)
+        _assert_equal(M.combine_mc_plain(p, smap, flat, has_b),
+                      M.combine_mc_cuda(p, flat, has_b))
+
+
+# padded block columns past 2*mbW, an odd lane count, the front end's
+# widest row and tallest column
+STAGE_GEOMETRIES = [(3, 5, 3), (2, 11, 9), (1, 1023, 2), (1, 2, 1056)]
+
+
+@pytest.mark.parametrize("K,mbW,mbH", STAGE_GEOMETRIES)
+def test_stage_kernels_geometries(dev, K, mbW, mbH):
+    for name, (kern, plain, _b, _o) in stage_calls(dev, 80, K, mbW,
+                                                   mbH).items():
+        _assert_equal(plain(), kern())
+
+
+def test_decode_paths_run_no_plain_stage(dev, monkeypatch):
+    """Both decode paths on the card never call a stage's plain version:
+    each is replaced by a function that raises, and the frames stay
+    byte-identical to the CPU path's, with each stage kernel launched once
+    a step or frame (the MC ones on every inter step)."""
+    data = streams.avcgen().gen_random_cabac_ipb_stream(
+        8, 6, n_gops=2, seed=5, closed=True, gop_pb=2, density=0.1,
+        max_level=4, intra_prob=0.1)
+    runs = (("decode_annexb", decode_annexb),
+            ("lockstep", lambda d, **kw: decode_gops_batched(d, lanes=2,
+                                                             **kw)))
+    want = {name: list(run(data, device="cpu")) for name, run in runs}
+
+    def plain_on_card(*a, **kw):
+        raise AssertionError("a stage's plain version ran on the card")
+
+    for mod, plain, _wrapper in STAGES.values():
+        monkeypatch.setattr(mod, plain, plain_on_card)
+    for name, run in runs:
+        reset_counts()
+        with RouteLog() as rl:
+            got = list(run(data))
+        launches = read_counts()
+        check_no_plain(name, launches, rl)
+        assert launches["residual"] and launches["mcpack"], launches
+        check_views(name, want[name], got)
 
 
 @pytest.mark.parametrize("name", corpus.CPU_CLASSES + corpus.CARD_CLASSES)
