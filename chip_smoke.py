@@ -1269,9 +1269,11 @@ def phase_decode():
         if d.digest != B.host_frame_digest(b.y, b.cb, b.cr):
             raise AssertionError(f"frame {i}: device digest mismatch")
     res["frames"] = n
+    pk = res["pack"]["pack_host_ms"]
     log(f"[decode] {n} frames byte-identical cuda vs cpu; digests match; "
-        f"launches {res['launches']}; MC route of each inter step "
-        f"{res['mc_routes']}")
+        f"launches {res['launches']} beside a pack of "
+        f"{sum(pk) / len(pk):.2f} host ms a step (K=2, the lane pool); MC "
+        f"route of each inter step {res['mc_routes']}")
     return res, data, ref
 
 

@@ -31,7 +31,9 @@ Deliberate differences from the JAX package:
 from __future__ import annotations
 
 import functools
+import os
 import threading
+from concurrent.futures import ThreadPoolExecutor, wait
 
 import numpy as np
 import torch
@@ -327,11 +329,42 @@ def _check_geometry(planes_list, ref_planes):
                 f"the layout's {want[0]}x{want[1]} mbs")
 
 
-def _probe(pl, want_exc):
+def _probe(pl, want_exc, lane):
     pr = pl.pack_probe(want_exc)
     if pr is None:
-        raise RuntimeError("e264t_pack_probe failed")
+        raise RuntimeError(f"lane {lane}: e264t_pack_probe failed")
     return pr
+
+
+# The lanes of a step pack on one thread pool for the whole process, made
+# on first use: one thread a core at most, started as tasks arrive, so a
+# step of K lanes keeps min(K, cores) of them busy.  The native calls
+# release the interpreter lock, so the lanes' probes and row copies run
+# side by side.  No task submits to the pool, so threads that pack at
+# once share it without deadlock.
+_POOL = None
+_POOL_LOCK = threading.Lock()
+
+
+def _pool():
+    global _POOL
+    with _POOL_LOCK:
+        if _POOL is None:
+            _POOL = ThreadPoolExecutor(max_workers=os.cpu_count() or 1,
+                                       thread_name_prefix="arena-pack")
+        return _POOL
+
+
+def _each_lane(fn, lanes, pooled):
+    """[fn(k) for k in lanes]: on the pool when `pooled`, else inline.
+    Every task ends before the first error in lane order is raised, so no
+    worker still writes into the caller's buffer."""
+    if not pooled:
+        return [fn(k) for k in lanes]
+    pool = _pool()
+    futs = [pool.submit(fn, k) for k in lanes]
+    wait(futs)
+    return [f.result() for f in futs]
 
 
 def pack_planes_batch(planes_list, ref_planes, keep=frozenset(),
@@ -350,6 +383,12 @@ def pack_planes_batch(planes_list, ref_planes, keep=frozenset(),
     powers of two from 128 and stay grown, so layouts repeat.  Once a
     frame's levels do not fit int8, `gat_state["coef8_off"]` is set.
 
+    With native planes and two or more live lanes, the lanes' probes and
+    then their rows pack on the process's pool (`_pool`), each lane into
+    its own row; the probes merge here in lane order, so the bytes, the
+    layout and `gat_state` equal those of one lane after another.  A
+    native failure raises RuntimeError naming its lane.
+
     `device` is where the arena goes: on cuda the buffer is pinned
     staging (see upload).  Returns (buf uint8 [K, L] host tensor, layout,
     extra_off).  A lane whose frame size or plane shapes differ from
@@ -359,7 +398,8 @@ def pack_planes_batch(planes_list, ref_planes, keep=frozenset(),
     device = torch.device(device)
     native = all(pl is None or hasattr(pl, "pack_probe")
                  for pl in planes_list)
-    live = [pl for pl in planes_list if pl is not None]
+    live = [k for k, pl in enumerate(planes_list) if pl is not None]
+    pooled = native and len(live) >= 2
     gat = None
     masks_list = [None] * len(planes_list)
     if gat_state is not None:
@@ -370,8 +410,9 @@ def pack_planes_batch(planes_list, ref_planes, keep=frozenset(),
         if native:
             # one C-side probe per lane: coded-row counts from the dirty
             # lists, the split-mb scan and the int8 verdict
-            for pl in live:
-                pr = _probe(pl, True)
+            probes = _each_lane(
+                lambda k: _probe(planes_list[k], True, k), live, pooled)
+            for pr in probes:
                 if coef8 and not pr.coef8_ok:
                     coef8 = False
                     gat_state["coef8_off"] = True
@@ -445,28 +486,32 @@ def pack_planes_batch(planes_list, ref_planes, keep=frozenset(),
         # The JAX packer checks the int8 range only when it gathers; here
         # the check runs whenever coef8 is on, and a level outside
         # [-128, 127] sends the step as int16.
-        for pl in live:
-            if not (_probe(pl, False).coef8_ok if native
-                    else coef_fits_int8(pl)):
-                coef8 = False
-                break
+        if native:
+            coef8 = all(pr.coef8_ok for pr in _each_lane(
+                lambda k: _probe(planes_list[k], False, k), live, pooled))
+        else:
+            coef8 = all(coef_fits_int8(planes_list[k]) for k in live)
     layout, size = plan_layout(ref_planes, keep=keep, coef8=coef8, gat=gat)
     extra_off = size + (-size) % 8
     total = extra_off + (extra.shape[1] if extra is not None else 0)
     buf = _arena_buf(total, len(planes_list), device)
     bn = buf.numpy()
     ents = _native_entries(layout, size) if native else None
-    for k, pl in enumerate(planes_list):
+
+    def fill(k):
+        pl, row = planes_list[k], bn[k]
         if pl is None:
-            bn[k, :extra_off] = 0
-            continue
+            row[:extra_off] = 0
+            return
         if native:
-            rc = pl.pack_row(ents[0], ents[1], bn[k], size)
+            rc = pl.pack_row(ents[0], ents[1], row, size)
             if rc != 0:
-                raise RuntimeError(f"e264t_pack_row failed rc={rc}")
+                raise RuntimeError(f"lane {k}: e264t_pack_row failed rc={rc}")
         else:
-            pack_into(pl, layout, bn[k], masks=masks_list[k])
-        bn[k, size:extra_off] = 0
+            pack_into(pl, layout, row, masks=masks_list[k])
+        row[size:extra_off] = 0
+
+    _each_lane(fill, range(len(planes_list)), pooled)
     if extra is not None:
         bn[:, extra_off:] = extra
     return buf, layout, extra_off

@@ -283,10 +283,11 @@ def _decode_group(lane_objs, sink, mesh):
     coef8 = devices[0].type == "cuda"
     step = 0
     step_out = []           # per step: host copies of each shard's aux
-    # PIPELINE: step N+1's entropy threads start before step N's upload
-    # and device work, so host parsing overlaps both.  Output borrows keep
-    # uploaded-pending slots pinned; all native API calls stay on this
-    # thread while the lane threads are idle.
+    # PIPELINE: step N+1's entropy threads start after step N's pack and
+    # before its upload and device work, so host parsing overlaps both.
+    # Output borrows keep uploaded-pending slots pinned; every other
+    # native API call is made while the lane threads are idle (the pack's
+    # on the arena's pool, the rest on this thread).
     threads = start_parsing(0)
     while True:
         for t in threads:
@@ -358,16 +359,16 @@ def _decode_group(lane_objs, sink, mesh):
 
         intra_mode = _intra_mode(lane_flags, mbW, mbH,
                                  devices[0].type == "cpu")
-        # borrows uploaded at earlier steps are safe to release now; then
-        # kick off the NEXT step's entropy so it overlaps this step's
-        # upload and device work (native calls only while the lane
-        # threads are idle; this step's slots stay pinned)
+        # borrows uploaded at earlier steps are safe to release now
+        # (native calls only while the lane threads are idle)
         for ln in lane_objs:
             _return_packed(ln, step - 1)
-        threads = start_parsing(step + 1)
         # ONE packed buffer per step: every lane's planes plus the step's
         # meta block in one [K, L] arena (dead lanes are zero rows), and
-        # one upload a shard of its block of rows
+        # one upload a shard of its block of rows.  The lanes pack side by
+        # side on every core, so the NEXT step's entropy starts only
+        # after the pack, and overlaps this step's upload and device work
+        # (this step's slots stay pinned)
         ref_pl = next(pl for pl in planes_list if pl is not None)
         meta = B.pack_meta(sm4s, sm8s, slot_maps, ring_slots)
         if coef8 and gat_state.get("coef8_off"):
@@ -375,6 +376,7 @@ def _decode_group(lane_objs, sink, mesh):
         buf, layout, meta_off = A.pack_planes_batch(
             planes_list, ref_pl, keep=keep, coef8=coef8, extra=meta,
             gat_state=gat_state, device=devices[0])
+        threads = start_parsing(step + 1)
         arenas = [A.upload(buf[i * b:(i + 1) * b], d)
                   for i, d in enumerate(devices)]
 

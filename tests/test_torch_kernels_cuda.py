@@ -626,6 +626,29 @@ def test_two_threads_share_no_staging(dev):
                 assert np.array_equal(getattr(a, c), getattr(b, c))
 
 
+def test_pool_packs_1080p_k8_steps_into_pinned_staging(dev):
+    """Every step of 8 lanes at 1080p (two closed GOPs, four decoders
+    each, gat_state carried, int8 levels as on the card), packed by the
+    lane pool into pinned staging: the bytes, layout and meta offset of
+    the packer one lane after another."""
+    from test_torch_pack_pool import _steps, serial_pack
+    gops = [streams.avcgen().gen_random_cabac_ipb_stream(
+        120, 68, n_gops=1, seed=s, closed=True, gop_pb=1, density=0.05,
+        max_level=4, intra_prob=0.05) for s in (42, 43)]
+    st_pool, st_ser, n = {}, {}, 0
+    for n, pls in enumerate(_steps(gops * 4), 1):
+        extra = np.random.RandomState(n).randint(0, 256, (8, 64), np.uint8)
+        buf, layout, off = A.pack_planes_batch(
+            pls, pls[0], coef8=True, extra=extra, gat_state=st_pool,
+            device=dev)
+        assert buf.is_pinned() and buf.shape[0] == 8
+        want, wlayout, woff = serial_pack(pls, pls[0], coef8=True,
+                                          extra=extra, gat_state=st_ser)
+        assert layout == wlayout and off == woff and st_pool == st_ser, n
+        assert np.array_equal(buf.numpy(), want), n
+    assert n == 3
+
+
 def test_staging_uploads_rows_to_two_shards(dev):
     """At every step one pinned staging buffer's two rows go to two shards
     (two cards where there are, else cuda:0 twice), the two buffers taken
